@@ -1,0 +1,654 @@
+"""Sort-based grouped aggregation.
+
+Port of ``gpu_olap_tpu/ops/aggregate.py`` on torch tensors:
+
+1. lexicographic sort of the key columns (multi-key, nulls-as-groups);
+2. run boundaries from sorted-key adjacency; group id = prefix sum of flags;
+3. per-group [start, end] positions from the run-start positions;
+4. SUM/COUNT/AVG as ``cumsum`` + boundary differences (exact for int64);
+   MIN/MAX of the primary argument ride the key sort (min at run start, max
+   at start + valid_count - 1); COUNT(DISTINCT) via a secondary
+   (keys, value) sort; further MIN/MAX arguments take a segmented reduction;
+5. group key outputs gathered at run starts.
+
+The hot shape (one null-free int32 key, aggregates that ride the sort) takes
+the ``seg_agg`` kernel after the sort (:func:`_maybe_seg_agg_path`).
+
+Outputs are padded to ``max_groups`` with a returned group count, so the
+executor's overflow -> regrow protocol is the JAX engine's.  Torch has native
+int64, so integer SUMs accumulate in int64 directly: the JAX engine's
+float64 exact-sum lane (``sum_f64_ok``) has no counterpart here.  An int32
+SUM payload is kept where statistics prove the argument narrow, because the
+``seg_agg`` kernel takes int32 lanes.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS
+
+from .dtypes import INT64_MAX, INT64_MIN, key_code, key_fill, torch_dtype
+from .sort import lexsort
+
+
+def _sum_by_boundary(values, starts, ends):
+    """Segment sums of a sorted array via cumsum + boundary differences."""
+    c = torch.cumsum(values, 0, dtype=values.dtype)
+    n = values.shape[0]
+    end_v = c[torch.clamp(ends, 0, n - 1)]
+    start_prev = torch.where(starts > 0, c[torch.clamp(starts - 1, 0, n - 1)],
+                             torch.zeros((), dtype=c.dtype, device=c.device))
+    out = end_v - start_prev
+    return torch.where(ends >= starts, out,
+                       torch.zeros((), dtype=c.dtype, device=c.device))
+
+
+def _cnt_by_boundary(flags, starts, ends):
+    """Segment counts of a boolean/int mask, int64 out."""
+    return _sum_by_boundary(flags.to(torch.int64), starts, ends)
+
+
+def _arg_nullable(spec) -> bool:
+    """Whether the ride null-flag operand is needed for this argument."""
+    return spec.get("valid") is not None or spec.get("np_kind") == "f"
+
+
+def _adjacent_diff(op):
+    return torch.cat([torch.ones(1, dtype=torch.bool, device=op.device),
+                      op[1:] != op[:-1]])
+
+
+def groupby_aggregate(
+    keys: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],  # (code, null|None)
+    row_valid: Optional[torch.Tensor],                 # bool (N,) or None
+    aggs: Sequence[dict],
+    max_groups: int,
+    n_rows: Optional[int] = None,
+    allow_kernel: bool = True,
+    *,
+    device: torch.device,
+):
+    """Grouped aggregation over padded columns.
+
+    ``keys`` entries are (code, null_flags); null_flags may be None when the
+    key is statically null-free.  Invalid rows (``row_valid`` False) fold
+    into the first sort operand and sort after every valid row.
+
+    ``aggs`` entries: {func, values (tensor or None for count(*)),
+    valid (tensor|None), distinct (bool), acc_dtype (np dtype), np_kind,
+    arg_id, int32_ok (bool)}.  ``device`` holds every operand.
+
+    Returns (group_codes: [(code, null)], agg_results: [(data, valid|None)],
+    n_groups: int64 0-d tensor, overflow: bool 0-d tensor).
+    """
+    dev = device
+    if keys:
+        n = keys[0][0].shape[0]
+    elif n_rows is not None:
+        n = n_rows
+    else:
+        n = next(a for a in aggs if a.get("values") is not None)["values"].shape[0]
+
+    if not keys:
+        return _global_aggregate(aggs, row_valid, n, dev)
+
+    arange32 = torch.arange(n, dtype=torch.int32, device=dev)
+    inv = None if row_valid is None else (~row_valid).to(torch.int32)
+
+    # ---- key operands: fold row validity into the first null flag ----
+    k0_code, k0_null = keys[0]
+    k0n = None if k0_null is None else k0_null.to(torch.int32)
+    if inv is not None and k0n is not None:
+        # invalid rows (2, 3) sort after null-key rows (1) after plain rows (0)
+        first, inv_thr, k0_in_first = inv * 2 + k0n, 2, True
+    elif inv is not None:
+        first, inv_thr, k0_in_first = inv, 1, False
+    elif k0n is not None:
+        first, inv_thr, k0_in_first = k0n, None, True
+    else:
+        first, inv_thr, k0_in_first = None, None, False
+
+    key_ops: List = [] if first is None else [first]
+    key_slots = []
+    key_ops.append(k0_code)
+    key_slots.append({"code": len(key_ops) - 1,
+                      "null": 0 if k0_in_first else None,
+                      "in_first": k0_in_first})
+    for code, null in keys[1:]:
+        ns = None
+        if null is not None:
+            key_ops.append(null.to(torch.int32))
+            ns = len(key_ops) - 1
+        key_ops.append(code)
+        key_slots.append({"code": len(key_ops) - 1, "null": ns,
+                          "in_first": False})
+
+    # ---- aggregate routing: primary key-ride / payload ride / fallback ----
+    primary_spec = next(
+        (s for s in aggs
+         if s["func"] in ("min", "max") and not s.get("distinct")
+         and s.get("values") is not None), None)
+    primary_arg = primary_spec.get("arg_id") if primary_spec else None
+
+    ride_ops: List = []
+    ride_null_slot = ride_code_slot = None
+    if primary_spec is not None:
+        pv_code, pv_null = key_code(primary_spec["values"],
+                                    primary_spec.get("valid"),
+                                    primary_spec.get("np_kind", "i"))
+        if primary_spec.get("int32_ok") and pv_code.dtype == torch.int64:
+            pv_code = pv_code.to(torch.int32)
+        base = len(key_ops)
+        if _arg_nullable(primary_spec):
+            ride_ops.append(pv_null.to(torch.int32))
+            ride_null_slot = base
+            base += 1
+        ride_ops.append(pv_code)
+        ride_code_slot = base
+
+    def _same_arg(spec) -> bool:
+        return (primary_spec is not None
+                and spec.get("arg_id") is not None
+                and spec.get("arg_id") == primary_arg)
+
+    def _rides_primary(spec) -> bool:
+        # reuse of the primary key-ride: exact for ints (key_code is identity);
+        # floats go through payloads so NaN keeps raw-value semantics
+        if spec is primary_spec:
+            return True
+        if not _same_arg(spec):
+            return False
+        if spec["func"] in ("min", "max"):
+            return True
+        return spec.get("np_kind", "i") != "f"
+
+    # pre-masked payload lanes, deduplicated per (kind, argument)
+    payloads: List = []
+    payload_meta: List[Tuple[str, object]] = []
+
+    def _payload_slot(kind: str, spec) -> int:
+        ix = _find_payload(payload_meta, kind, spec)
+        if ix is not None:
+            return ix
+        values, valid = spec["values"], spec.get("valid")
+        if kind == "sum":
+            acc = spec["acc_dtype"]
+            if (spec.get("int32_ok") and np.dtype(acc).kind in "iu"
+                    and values.dtype != torch.float64):
+                # int32 lane: the seg_agg kernel's payload width
+                mv = values.to(torch.int32)
+            else:
+                mv = values.to(torch_dtype(acc))
+            if valid is not None:
+                mv = torch.where(valid, mv, 0)
+        elif kind == "fsum":
+            mv = values.to(torch.float64)
+            if valid is not None:
+                mv = torch.where(valid, mv, 0.0)
+        else:  # cnt
+            mv = valid.to(torch.int32)
+        payloads.append(mv)
+        payload_meta.append((kind, spec.get("arg_id")))
+        return len(payloads) - 1
+
+    plans = []  # per-spec execution plan
+    need_perm = False
+    for spec in aggs:
+        func = spec["func"]
+        if spec.get("distinct") and func in ("count", "sum", "avg"):
+            # DISTINCT is a no-op for min/max, which fall through
+            plans.append(("distinct", None))
+            continue
+        if func == "count" and spec.get("values") is None:
+            plans.append(("size", None))
+            continue
+        if _rides_primary(spec):
+            plans.append(("primary", None))
+            continue
+        if func == "count":
+            if spec.get("valid") is None:
+                plans.append(("size", None))
+            else:
+                plans.append(("cnt", _payload_slot("cnt", spec)))
+            continue
+        if func == "sum":
+            cs = (None if spec.get("valid") is None
+                  else _payload_slot("cnt", spec))
+            plans.append(("sum", (_payload_slot("sum", spec), cs)))
+            continue
+        if func == "avg":
+            cs = (None if spec.get("valid") is None
+                  else _payload_slot("cnt", spec))
+            plans.append(("avg", (_payload_slot("fsum", spec), cs)))
+            continue
+        # min/max over a non-primary argument: permutation fallback
+        need_perm = True
+        plans.append(("fallback", None))
+
+    seg = _maybe_seg_agg_path(key_ops, ride_ops, ride_null_slot, payloads,
+                              need_perm, plans, aggs, n, max_groups,
+                              allow_kernel)
+    if seg is not None:
+        return seg
+
+    operands = key_ops + ride_ops + payloads
+    if need_perm:
+        operands = operands + [arange32]
+    num_keys = len(key_ops) + len(ride_ops)
+    sorted_ops = lexsort(operands, num_keys)
+
+    first_s = sorted_ops[0] if first is not None else None
+    if inv_thr is not None:
+        nvalid = n - int((first_s >= inv_thr).sum())
+        in_prefix = arange32 < nvalid
+    else:
+        in_prefix = None
+
+    diff = torch.zeros(n, dtype=torch.bool, device=dev)
+    for slot in range(len(key_ops)):
+        diff = diff | _adjacent_diff(sorted_ops[slot])
+    newflag = diff if in_prefix is None else (diff & in_prefix)
+
+    gid_raw = torch.cumsum(newflag.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_groups = newflag.sum(dtype=torch.int64)
+    overflow = n_groups > max_groups
+    gid = torch.clamp(gid_raw, 0, max_groups)
+    if in_prefix is not None:
+        gid = torch.where(in_prefix, gid, max_groups)
+
+    nval = nvalid if inv_thr is not None else n
+    starts, ends, exists = _dense_boundaries(newflag, n_groups, nval,
+                                             max_groups)
+    sizes64 = torch.where(exists, (ends - starts + 1).to(torch.int64), 0)
+    safe_start = torch.clamp(starts, 0, n - 1)
+
+    # group key outputs: gather the sorted key at each run start
+    group_codes = []
+    for ks in key_slots:
+        code_s = sorted_ops[ks["code"]]
+        out_code = torch.where(exists, code_s[safe_start],
+                               key_fill(code_s.dtype))
+        if ks["in_first"]:
+            nf = (first_s[safe_start] & 1) == 1
+        elif ks["null"] is not None:
+            nf = sorted_ops[ks["null"]][safe_start] > 0
+        else:
+            nf = None  # statically null-free key: no flag materialized
+        group_codes.append((
+            out_code, None if nf is None else (exists & nf)))
+
+    # primary key-ride state
+    pv_code_s = pv_null_s = ride_cnt = None
+    if primary_spec is not None:
+        pv_code_s = sorted_ops[ride_code_slot]
+        if ride_null_slot is not None:
+            pv_null_s = sorted_ops[ride_null_slot]
+            ride_cnt = _cnt_by_boundary(pv_null_s == 0, starts, ends)
+        else:
+            ride_cnt = sizes64
+
+    pay_base = len(key_ops) + len(ride_ops)
+    cnt_cache = {}
+
+    def _payload_sorted(ix):
+        return sorted_ops[pay_base + ix]
+
+    def _cnt_of(ix):
+        if ix not in cnt_cache:
+            cnt_cache[ix] = _sum_by_boundary(
+                _payload_sorted(ix).to(torch.int64), starts, ends)
+        return cnt_cache[ix]
+
+    results = []
+    for spec, (kind, slot) in zip(aggs, plans):
+        acc = spec["acc_dtype"]
+        if kind == "size":
+            results.append((sizes64, None))
+        elif kind == "distinct":
+            results.append(_distinct_agg(spec, key_ops, inv_thr, max_groups,
+                                         n))
+        elif kind == "primary":
+            func = spec["func"]
+            # null-free argument (no ride null lane): every output group has
+            # >= 1 value, so validity is statically all-true
+            has = None if pv_null_s is None else (ride_cnt > 0)
+            if func in ("min", "max"):
+                if func == "min":
+                    pos = safe_start
+                else:
+                    pos = torch.clamp(starts + ride_cnt - 1, 0, n - 1)
+                out = pv_code_s[pos]
+                # int32-narrowed values stay int32 (the host boundary widens)
+                if not (out.dtype == torch.int32
+                        and np.dtype(acc) == np.dtype(np.int64)):
+                    out = out.to(torch_dtype(acc))
+                if has is not None:
+                    out = torch.where(has, out, 0)
+                results.append((out, has))
+            elif func == "count":
+                results.append((ride_cnt, None))
+            elif func == "sum":
+                base_v = pv_code_s.to(torch_dtype(acc))
+                if pv_null_s is not None:
+                    base_v = torch.where(pv_null_s == 0, base_v, 0)
+                results.append((_sum_by_boundary(base_v, starts, ends), has))
+            else:  # avg
+                base_v = pv_code_s.to(torch.float64)
+                if pv_null_s is not None:
+                    base_v = torch.where(pv_null_s == 0, base_v, 0.0)
+                s = _sum_by_boundary(base_v, starts, ends)
+                avg = s / torch.clamp(ride_cnt, min=1)
+                if has is not None:
+                    avg = torch.where(has, avg, 0.0)
+                results.append((avg, has))
+        elif kind == "cnt":
+            results.append((_cnt_of(slot), None))
+        elif kind == "sum":
+            sum_ix, cnt_ix = slot
+            mv = _payload_sorted(sum_ix).to(torch_dtype(acc))
+            s = _sum_by_boundary(mv, starts, ends)
+            results.append((s, None if cnt_ix is None else (_cnt_of(cnt_ix) > 0)))
+        elif kind == "avg":
+            fsum_ix, cnt_ix = slot
+            s = _sum_by_boundary(_payload_sorted(fsum_ix), starts, ends)
+            if cnt_ix is None:
+                results.append((s / torch.clamp(sizes64, min=1), None))
+            else:
+                cnt = _cnt_of(cnt_ix)
+                has = cnt > 0
+                results.append((torch.where(has, s / torch.clamp(cnt, min=1),
+                                            0.0), has))
+        else:  # fallback: permutation-based segmented min/max
+            perm = sorted_ops[-1]
+            results.append(_agg_one_fallback(spec, perm, gid, in_prefix,
+                                             starts, ends, n, max_groups))
+    return group_codes, results, n_groups, overflow
+
+
+def _maybe_seg_agg_path(key_ops, ride_ops, ride_null_slot, payloads,
+                        need_perm, plans, aggs, n, max_groups: int,
+                        allow_kernel: bool):
+    """The ``seg_agg`` kernel after the sort, for the hot shape: ONE
+    null-free int32 group key over rows that are all valid (a row mask
+    would be a second sort operand) and aggregates that all ride the sort:
+    COUNT(*), plus
+    SUM/MIN/MAX/AVG/COUNT over one null-free int32 argument.
+
+    Returns the standard (group_codes, results, n_groups, overflow) tuple or
+    None when the shape does not match (the caller takes the general path).
+    """
+    from .kernels.seg_agg import MIN_ROWS, seg_agg_sorted_i32
+
+    if not allow_kernel or need_perm:
+        return None
+    if len(key_ops) != 1 or key_ops[0].dtype != torch.int32:
+        return None
+    if n < MIN_ROWS:
+        return None  # below the JAX engine's one superblock: general path
+    k0 = key_ops[0]
+    if len(ride_ops) == 1 and not payloads:
+        # ride shape: MIN/MAX present, everything rides the (key, value) sort
+        if ride_null_slot is not None or ride_ops[0].dtype != torch.int32:
+            return None
+        if any(kind not in ("size", "primary") for kind, _ in plans):
+            return None
+        val_lane = ride_ops[0]
+    elif not ride_ops and len(payloads) == 1:
+        # payload shape: SUM over one null-free int32 argument (+ COUNT(*))
+        if payloads[0].dtype != torch.int32:
+            return None
+        if any(kind not in ("size", "sum") or
+               (kind == "sum" and slot != (0, None))
+               for kind, slot in plans):
+            return None
+        val_lane = payloads[0]
+    elif not ride_ops and not payloads \
+            and all(kind == "size" for kind, _ in plans):
+        # COUNT(*)-only / DISTINCT: the sorted keys serve as the value lane
+        val_lane = None
+    else:
+        return None
+
+    if val_lane is None:
+        (sk,) = lexsort([k0], 1)
+        sv = sk
+    else:
+        # in-group order is free for SUM, so the payload can always serve as
+        # a second sort key; for the ride shape it is one by design
+        sk, sv = lexsort([k0, val_lane], 2)
+
+    key_g, cnt_g, sum64, mn_g, mx_g, ng32 = seg_agg_sorted_i32(
+        sk, sv, max_groups)
+    n_groups = ng32.to(torch.int64)
+    overflow = n_groups > max_groups
+
+    g_idx = torch.arange(max_groups, dtype=torch.int32, device=k0.device)
+    exists = g_idx < n_groups
+    group_codes = [(torch.where(exists, key_g, key_fill(key_g.dtype)), None)]
+    sizes64 = torch.where(exists, cnt_g.to(torch.int64), 0)
+
+    results = []
+    for spec, (kind, _slot) in zip(aggs, plans):
+        acc = spec["acc_dtype"]
+        if kind == "size" or spec["func"] == "count":
+            results.append((sizes64, None))
+            continue
+        func = spec["func"]
+        if func in ("min", "max"):
+            out = torch.where(exists, mn_g if func == "min" else mx_g, 0)
+            # int32 stays int32 (the host boundary widens), as on the
+            # general primary path
+            if np.dtype(acc) != np.dtype(np.int64):
+                out = out.to(torch_dtype(acc))
+            results.append((out, None))
+        elif func == "sum":
+            s = torch.where(exists, sum64, 0)
+            if np.dtype(acc) != np.dtype(np.int64):
+                s = s.to(torch_dtype(acc))
+            results.append((s, None))
+        else:  # avg: exact int64 sum / exact count in f64
+            a = sum64.to(torch.float64) / torch.clamp(sizes64, min=1).to(
+                torch.float64)
+            results.append((torch.where(exists, a, 0.0), None))
+    GLOBAL_METRICS.bump("torch_seg_agg_path")
+    return group_codes, results, n_groups, overflow
+
+
+def _dense_boundaries(newflag, n_groups, nval: int, max_groups: int):
+    """Per-group [start, end] run positions from the run-start flags.
+
+    Group ids are gap-free, so the g-th set flag IS group g's start and
+    ``ends[g] = starts[g+1] - 1``; the last group ends at ``nval - 1``
+    (``nval`` is the number of valid rows).  Slots at or past ``n_groups``
+    get an empty [nval, nval - 2] range."""
+    dev = newflag.device
+    pos = torch.nonzero(newflag).flatten().to(torch.int32)
+    ng = pos.shape[0]
+    m = min(ng, max_groups)
+    g_idx = torch.arange(max_groups, dtype=torch.int32, device=dev)
+    exists = g_idx < n_groups
+    starts = torch.full((max_groups,), nval, dtype=torch.int32, device=dev)
+    starts[:m] = pos[:m]
+    nxt = torch.cat([pos[1:], torch.tensor([nval], dtype=torch.int32,
+                                           device=dev)])
+    ends = torch.full((max_groups,), nval - 2, dtype=torch.int32, device=dev)
+    ends[:m] = nxt[:m] - 1
+    return starts, ends, exists
+
+
+def _find_payload(payload_meta, kind, spec):
+    """Payload lanes are shared across aggregates over the same argument
+    expression; arg_id None (callers that don't set it) never deduplicates."""
+    arg = spec.get("arg_id")
+    if arg is None:
+        return None
+    for i, (k, a) in enumerate(payload_meta):
+        if k == kind and (a is arg or a == arg):
+            return i
+    return None
+
+
+def _agg_one_fallback(spec, perm, gid, in_prefix, starts, ends, n,
+                      max_groups):
+    """MIN/MAX over a non-primary argument: gather by the sort permutation and
+    reduce per group (rare: needs two distinct min/max argument columns)."""
+    func = spec["func"]
+    values = spec.get("values")
+    valid = spec.get("valid")
+    acc = torch_dtype(spec["acc_dtype"])
+
+    vals = values[perm]
+    if in_prefix is None:
+        v_valid = (torch.ones(n, dtype=torch.bool, device=vals.device)
+                   if valid is None else valid[perm])
+    else:
+        v_valid = in_prefix if valid is None else (valid[perm] & in_prefix)
+
+    if acc.is_floating_point:
+        ident = float("inf") if func == "min" else float("-inf")
+    else:
+        ident = INT64_MAX if func == "min" else INT64_MIN
+    masked = torch.where(v_valid, vals.to(acc),
+                         torch.tensor(ident, dtype=acc, device=vals.device))
+    red = torch.full((max_groups + 1,), ident, dtype=acc, device=vals.device)
+    red = red.scatter_reduce(0, gid.to(torch.int64), masked,
+                             "amin" if func == "min" else "amax")
+    out = red[:max_groups]
+    if valid is None:
+        # null-free argument: every non-empty group has a value
+        return out, None
+    cnt = _cnt_by_boundary(v_valid, starts, ends)
+    has_any = cnt > 0
+    return torch.where(has_any, out, 0), has_any
+
+
+def _distinct_agg(spec, key_ops, inv_thr, max_groups, n):
+    """COUNT/SUM/AVG(DISTINCT x): secondary sort ordered by (group keys, x),
+    distinct flags from adjacency, cumsum + boundary diff.  SUM/AVG carry the
+    raw value as a sort payload and reduce only first occurrences."""
+    func = spec["func"]
+    values = spec["values"]
+    valid = spec.get("valid")
+    dev = values.device
+    vcode, vnull = key_code(values, valid, spec.get("np_kind", "i"))
+    nullable = _arg_nullable(spec)
+    ops = list(key_ops) + ([vnull.to(torch.int32)] if nullable else []) + [vcode]
+    need_payload = func in ("sum", "avg")
+    if need_payload:
+        pay_dtype = np.float64 if func == "avg" else spec["acc_dtype"]
+        ops = ops + [values.to(torch_dtype(pay_dtype))]
+    num_keys = len(ops) - (1 if need_payload else 0)
+    sorted2 = lexsort(ops, num_keys)
+    arange32 = torch.arange(n, dtype=torch.int32, device=dev)
+    if inv_thr is not None:
+        nval2 = n - int((sorted2[0] >= inv_thr).sum())
+        in_pref2 = arange32 < nval2
+    else:
+        in_pref2 = None
+        nval2 = n
+    key_end = len(key_ops)
+    diff = torch.zeros(n, dtype=torch.bool, device=dev)
+    for op in sorted2[:key_end]:
+        diff = diff | _adjacent_diff(op)
+    newflag2 = diff if in_pref2 is None else (diff & in_pref2)
+    n_groups2 = newflag2.sum(dtype=torch.int64)
+    starts2, ends2, _ = _dense_boundaries(newflag2, n_groups2, nval2,
+                                          max_groups)
+    null_s = sorted2[key_end] if nullable else None
+    vcode_s = sorted2[key_end + (1 if nullable else 0)]
+    distinct_new = newflag2 | _adjacent_diff(vcode_s)
+    if in_pref2 is not None:
+        distinct_new = distinct_new & in_pref2
+    if nullable:
+        distinct_new = distinct_new & (null_s == 0)
+    cnt = _cnt_by_boundary(distinct_new, starts2, ends2)
+    if func == "count":
+        return cnt, None
+    payload_s = sorted2[-1]
+    masked = torch.where(distinct_new, payload_s, 0)
+    ssum = _sum_by_boundary(masked, starts2, ends2)
+    has = cnt > 0
+    acc = torch_dtype(spec["acc_dtype"])
+    if func == "sum":
+        out = torch.where(has, ssum.to(acc), 0)
+        return out, (has if _arg_nullable(spec) else None)
+    avg = torch.where(has, ssum / torch.clamp(cnt, min=1).to(torch.float64),
+                      0.0)
+    return avg, (has if _arg_nullable(spec) else None)
+
+
+def _global_aggregate(aggs, row_valid, n, device):
+    """No GROUP BY: direct masked reductions, one output row."""
+    rv = (torch.ones(n, dtype=torch.bool, device=device) if row_valid is None
+          else row_valid)
+    results = []
+    for spec in aggs:
+        func = spec["func"]
+        values = spec.get("values")
+        valid = spec.get("valid")
+        if func == "count" and values is None:
+            results.append((rv.sum(dtype=torch.int64).reshape(1), None))
+            continue
+        if spec.get("distinct") and func in ("count", "sum", "avg"):
+            # global distinct: sort values, first-occurrence adjacency mask
+            # (SUM/AVG ride the raw value as a payload and reduce only first
+            # occurrences)
+            vcode, vnull = key_code(values, valid, spec.get("np_kind", "i"))
+            inv = (vnull | ~rv).to(torch.int32)
+            ops = [inv, vcode]
+            if func in ("sum", "avg"):
+                pay_dtype = (np.float64 if func == "avg"
+                             else spec["acc_dtype"])
+                ops.append(values.to(torch_dtype(pay_dtype)))
+            sorted_g = lexsort(ops, 2)
+            s_inv, s_code = sorted_g[0], sorted_g[1]
+            nv = n - int(s_inv.sum())
+            arange = torch.arange(n, device=device)
+            first = _adjacent_diff(s_code) & (arange < nv)
+            cnt = first.sum(dtype=torch.int64)
+            if func == "count":
+                results.append((cnt.reshape(1), None))
+                continue
+            pay_s = sorted_g[2]
+            ssum = torch.where(first, pay_s, 0).sum(dtype=pay_s.dtype)
+            has = (cnt > 0).reshape(1)
+            acc = torch_dtype(spec["acc_dtype"])
+            if func == "sum":
+                results.append((torch.where(cnt > 0, ssum.to(acc),
+                                            0).reshape(1), has))
+            else:
+                avg = torch.where(cnt > 0,
+                                  ssum / torch.clamp(cnt, min=1).to(
+                                      torch.float64), 0.0)
+                results.append((avg.reshape(1), has))
+            continue
+        v_valid = rv if valid is None else (rv & valid)
+        if func == "count":
+            results.append((v_valid.sum(dtype=torch.int64).reshape(1), None))
+            continue
+        cnt = v_valid.sum(dtype=torch.int64)
+        has = (cnt > 0).reshape(1)
+        acc = torch_dtype(spec["acc_dtype"])
+        if func == "sum":
+            s = torch.where(v_valid, values.to(acc), 0).sum(dtype=acc)
+            results.append((s.reshape(1), has))
+        elif func == "avg":
+            s = torch.where(v_valid, values.to(torch.float64), 0.0).sum()
+            results.append(((s / torch.clamp(cnt, min=1)).reshape(1), has))
+        elif func in ("min", "max"):
+            if acc.is_floating_point:
+                ident = float("inf") if func == "min" else float("-inf")
+            else:
+                ident = INT64_MAX if func == "min" else INT64_MIN
+            masked = torch.where(v_valid, values.to(acc),
+                                 torch.tensor(ident, dtype=acc, device=device))
+            red = masked.amin() if func == "min" else masked.amax()
+            results.append((torch.where(cnt > 0, red, 0).reshape(1), has))
+        else:
+            raise AssertionError(func)
+    return ([], results, torch.tensor(1, dtype=torch.int64, device=device),
+            torch.tensor(False, device=device))

@@ -1,0 +1,261 @@
+"""The port's kernels against the Pallas kernels they replace.
+
+Inputs are made with numpy from a seed and go through both: the Pallas
+kernel in interpret mode (as ``test_pallas_kernels.py`` runs it) and the
+port's wrapper on CPU tensors, which runs the kernel's plain PyTorch
+version.  Results are integers and must agree exactly.  The ``cuda``-marked
+twins run the CUDA kernels against the plain versions on a GPU and skip
+without one; they need no JAX, so on a GPU machine without it they run as
+``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``.
+"""
+
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from gpu_olap_tpu_torch.ops.kernels import filter_agg as tfa
+from gpu_olap_tpu_torch.ops.kernels import seg_agg as tsa
+
+I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+@pytest.fixture
+def interpret_mode():
+    """The JAX kernels' own test setting: Pallas in interpret mode."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+def _cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda", 0)
+
+
+# ---------------------------------------------------------------------------
+# filter_agg
+# ---------------------------------------------------------------------------
+
+def _filter_case(name):
+    """(filt, op, thr, cols, alias, n_valid, wants) as numpy; ``alias[i]``
+    makes column i the filter column itself."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    n = 70_000
+    v = rng.integers(0, 1000, n).astype(np.int32)
+    w = rng.integers(-50_000, 50_000, n).astype(np.int32)
+    if name.startswith("op_"):
+        return v, name[3:], 500, (v, w), (True, False), n, None
+    if name == "alias_only":
+        return v, "gt", 500, (v,), (True,), n, None
+    if name == "n_valid_straddle":
+        return v, "ge", 100, (v, w), (True, False), n - 4321, None
+    if name == "empty_match":
+        return v, "gt", 5000, (v, w), (True, False), n, None
+    if name == "sum16":
+        # |v| < 2^15: the shape where the TPU kernel takes its one-reduce sum
+        s = rng.integers(-(1 << 15) + 1, 1 << 15, n).astype(np.int32)
+        return s, "lt", 0, (s, w), (True, False), n, \
+            ((True, True, True), (True, False, False))
+    if name == "int32_extremes":
+        e = rng.integers(I32_MIN, I32_MAX, n, endpoint=True).astype(np.int32)
+        e[:500] = I32_MAX
+        e[500:1000] = I32_MIN
+        return e, "ne", 0, (e, w), (True, False), n, None
+    if name == "wants_dropped":
+        return w, "gt", 0, (v, w), (False, True), n, \
+            ((True, False), (False, True))
+    raise KeyError(name)
+
+
+FILTER_CASES = ["op_gt", "op_ge", "op_lt", "op_le", "op_eq", "op_ne",
+                "alias_only", "n_valid_straddle", "empty_match", "sum16",
+                "int32_extremes", "wants_dropped"]
+
+
+def _torch_filter(f, op, thr, cols, alias, n_valid, wants, device):
+    ft = torch.from_numpy(f).to(device)
+    ct = tuple(ft if a else torch.from_numpy(c).to(device)
+               for c, a in zip(cols, alias))
+    return tfa.filter_agg_i32(ft, op, thr, ct, n_valid, wants)
+
+
+def _as_ints(out):
+    count, per_col = out
+    return int(count), [tuple(int(x) for x in t) for t in per_col]
+
+
+@pytest.mark.parametrize("case", FILTER_CASES)
+def test_filter_agg_plain_matches_pallas(case, interpret_mode):
+    import jax
+
+    from gpu_olap_tpu.ops.pallas import filter_agg as jfa
+
+    f, op, thr, cols, alias, n_valid, wants = _filter_case(case)
+    jf = jax.numpy.asarray(f)
+    jcols = tuple(jf if a else jax.numpy.asarray(c)
+                  for c, a in zip(cols, alias))
+    exp = jfa.filter_agg_i32(jf, op, thr, jcols, len(cols), True, n_valid,
+                             wants)
+    got = _torch_filter(f, op, thr, cols, alias, n_valid, wants, "cpu")
+    assert _as_ints(got) == _as_ints(exp)  # integers: exact
+
+
+def test_filter_agg_plain_sentinels_when_nothing_matches():
+    v = torch.arange(1000, dtype=torch.int32)
+    count, ((s, mn, mx),) = tfa.filter_agg_i32(v, "lt", -5, (v,))
+    assert (int(count), int(s), int(mn), int(mx)) == (0, 0, I32_MAX, I32_MIN)
+
+
+def test_filter_agg_rejects_bad_inputs():
+    v = torch.arange(10, dtype=torch.int32)
+    launches = tfa.filter_agg_i32.launches
+    with pytest.raises(ValueError):
+        tfa.filter_agg_i32(v.to(torch.int64), "gt", 0, ())
+    with pytest.raises(ValueError):
+        tfa.filter_agg_i32(v, "between", 0, (v,))
+    with pytest.raises(ValueError):
+        tfa.filter_agg_i32(v, "gt", 0, (v[:5],))
+    with pytest.raises(ValueError):
+        tfa.filter_agg_i32(v, "gt", 0, (v,), n_valid=11)
+    assert tfa.filter_agg_i32.launches == launches  # CPU tensors never launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FILTER_CASES)
+def test_filter_agg_cuda_matches_plain(case):
+    dev = _cuda_device()
+    f, op, thr, cols, alias, n_valid, wants = _filter_case(case)
+    got = _torch_filter(f, op, thr, cols, alias, n_valid, wants, dev)
+    exp = _torch_filter(f, op, thr, cols, alias, n_valid, wants, "cpu")
+    torch.cuda.synchronize()
+    assert _as_ints(got) == _as_ints(exp)
+
+
+@pytest.mark.cuda
+def test_filter_agg_cuda_counts_only_real_launches():
+    dev = _cuda_device()
+    v = torch.arange(1000, dtype=torch.int32, device=dev)
+    launches = tfa.filter_agg_i32.launches
+    count, ((s, mn, mx),) = tfa.filter_agg_i32(v, "gt", 0, (v,), n_valid=0)
+    assert (int(count), int(s), int(mn), int(mx)) == (0, 0, I32_MAX, I32_MIN)
+    assert tfa.filter_agg_i32.launches == launches  # no row: no launch
+    tfa.filter_agg_i32(v, "gt", 0, (v,))
+    assert tfa.filter_agg_i32.launches == launches + 1
+
+
+# ---------------------------------------------------------------------------
+# seg_agg: the cases of test_pallas_kernels.py (co-sorted int32 lanes, a
+# multiple of the TPU kernel's 2048-row superblock)
+# ---------------------------------------------------------------------------
+
+SB = 2048  # the TPU kernel's superblock (gpu_olap_tpu/ops/pallas/seg_agg.py SB)
+
+
+def _co_sort(keys, vals):
+    order = np.lexsort((vals, keys))
+    return keys[order].astype(np.int32), vals[order].astype(np.int32)
+
+
+def _seg_case(name):
+    """(keys_sorted, vals_sorted, max_groups)."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if name == "basic_runs":
+        keys = np.sort(rng.integers(0, SB // 16, SB))
+        return (*_co_sort(keys, rng.integers(-1_000_000, 1_000_000, SB)), 200)
+    if name == "superblock_boundary_carry":
+        n = 2 * SB
+        keys = np.empty(n, np.int64)
+        half = n // 2 + SB // 2
+        keys[:half] = 7
+        keys[half:] = 100 + np.arange(n - half) // 3
+        return (*_co_sort(keys, np.arange(n) % 4096), n)
+    if name == "every_row_new_group":
+        return (np.arange(SB, dtype=np.int32) * 3 - SB,
+                np.full(SB, -5, np.int32), SB + 4)
+    if name == "sentinel_padding":
+        n, n_valid = 4 * SB, 4 * SB - 3000
+        k, v = _co_sort(rng.integers(0, 500, n_valid),
+                        rng.integers(0, 1000, n_valid))
+        return (np.concatenate([k, np.full(n - n_valid, I32_MAX, np.int32)]),
+                np.concatenate([v, np.zeros(n - n_valid, np.int32)]), 520)
+    if name == "overflow_exact_count":
+        return np.arange(SB, dtype=np.int32), np.ones(SB, np.int32), 64
+    if name == "one_group_everywhere":
+        return (np.full(3 * SB, -3, np.int32),
+                np.sort(rng.integers(I32_MIN, I32_MAX, 3 * SB)).astype(np.int32),
+                4)
+    if name == "giant_group_extremes":
+        n = 4 * SB
+        keys = np.empty(n, np.int64)
+        keys[:2047] = np.arange(2047)
+        keys[2047:3 * SB] = 2047
+        keys[3 * SB:] = 2048 + np.arange(n - 3 * SB) // 5
+        vals = np.full(n, I32_MAX, np.int64)
+        vals[::3] = I32_MIN
+        return (*_co_sort(keys, vals), 2048 + n - 3 * SB)
+    if name == "fuzz":
+        n = 3 * SB
+        ng = int(rng.integers(1, n + 1))
+        keys = np.sort(rng.integers(-(1 << 28), 1 << 28, ng))[
+            rng.integers(0, ng, n)]
+        return (*_co_sort(keys, rng.integers(I32_MIN, I32_MAX, n,
+                                             endpoint=True)), n + 8)
+    raise KeyError(name)
+
+
+SEG_CASES = ["basic_runs", "superblock_boundary_carry", "every_row_new_group",
+             "sentinel_padding", "overflow_exact_count", "one_group_everywhere",
+             "giant_group_extremes", "fuzz"]
+
+
+def _np_outputs(outs):
+    return [np.asarray(o) for o in outs]
+
+
+@pytest.mark.parametrize("case", SEG_CASES)
+def test_seg_agg_plain_matches_pallas(case, interpret_mode):
+    import jax
+
+    from gpu_olap_tpu.ops.pallas import seg_agg as jsa
+
+    assert jsa.SB == SB
+    keys, vals, max_groups = _seg_case(case)
+    exp = _np_outputs(jsa.seg_agg_sorted_i32(
+        jax.numpy.asarray(keys), jax.numpy.asarray(vals), max_groups, True))
+    got = _np_outputs(tsa.seg_agg_sorted_i32(
+        torch.from_numpy(keys), torch.from_numpy(vals), max_groups))
+    assert int(got[5]) == int(exp[5])  # exact n_groups, overflow included
+    m = min(int(exp[5]), max_groups)
+    for g, e in zip(got[:5], exp[:5]):
+        assert g.shape == (max_groups,)
+        np.testing.assert_array_equal(g[:m], e[:m])  # integers: exact
+
+
+def test_seg_agg_rejects_bad_inputs():
+    k = torch.arange(10, dtype=torch.int32)
+    launches = tsa.seg_agg_sorted_i32.launches
+    with pytest.raises(ValueError):
+        tsa.seg_agg_sorted_i32(k.to(torch.int64), k.to(torch.int64), 4)
+    with pytest.raises(ValueError):
+        tsa.seg_agg_sorted_i32(k, k[:5], 4)
+    with pytest.raises(ValueError):
+        tsa.seg_agg_sorted_i32(k[:0], k[:0], 4)
+    assert tsa.seg_agg_sorted_i32.launches == launches  # CPU tensors never launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SEG_CASES)
+def test_seg_agg_cuda_matches_plain(case):
+    dev = _cuda_device()
+    keys, vals, max_groups = _seg_case(case)
+    got = tsa.seg_agg_sorted_i32(torch.from_numpy(keys).to(dev),
+                                 torch.from_numpy(vals).to(dev), max_groups)
+    exp = tsa.seg_agg_plain(torch.from_numpy(keys), torch.from_numpy(vals),
+                            max_groups)
+    torch.cuda.synchronize()
+    for g, e in zip(got, exp):
+        np.testing.assert_array_equal(g.cpu().numpy(), e.numpy())
