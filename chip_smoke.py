@@ -1,17 +1,27 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py      # 200M-row filter, 100M-row x 4M-group GROUP BY
+    python3 chip_smoke.py      # about 2 to 2.5 minutes on one H100
 
-Phases, each printing one line:
+Phases, each printing one JSON line:
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions; exits
    non-zero without CUDA;
 2. build: compiles the CUDA kernels from ``gpu_olap_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version, exactly, at the
-   main path's shapes and on edge cases, with both times;
-4. engine: ``TorchOlapEngine(device="cuda")`` runs the two bench queries
-   (results exact against numpy, launch counts > 0) and a small query set
-   against the CPU oracle.
+3. kernels_edge_cases: each kernel (filter_agg, seg_agg, stream_compact,
+   expand_fill) against its plain PyTorch version, exactly, on edge cases;
+4. kernels_main_shapes: filter_agg and seg_agg against their plain versions
+   at the bench shapes (200M rows; 100M rows x 4M groups), with both times;
+5. engine_bench: ``TorchOlapEngine(device="cuda")`` runs the filter and
+   GROUP BY bench queries (exact against numpy, launch counts > 0);
+6. engine_join: the join path at full width, each query exact against
+   numpy on the route the JAX engine takes: a materializing stream join
+   and a GROUP BY over its pairs (100M x 100M), then the three bench joins
+   (join 100M x 100M, join_lookup 100M x 10M, sortmerge 25M x 25M);
+   stream_compact and expand_fill must launch;
+7. kernels_join_shapes: stream_compact and expand_fill against their plain
+   versions on the inputs the stream join gave them, with both times;
+8. engine_vs_oracle: small single-table and join queries against the CPU
+   oracle.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises.
@@ -23,6 +33,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -33,6 +44,12 @@ I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 FILTER_ROWS = 200_000_000
 GROUPBY_ROWS = 100_000_000
 GROUPBY_GROUPS = 4_000_000
+# bench.py's join configs (bench.py:289-358) at their full size
+# (bench.py:571-573); the stream-join queries use the `join` tables
+JOIN_ROWS = 100_000_000            # join: l and r
+JOIN_KEYS = JOIN_ROWS // 2
+LOOKUP_ROWS = (100_000_000, 10_000_000)
+SORTMERGE_ROWS = 25_000_000
 # warm runs per bench query; the engine line reports their median
 REPS = 11
 
@@ -166,7 +183,70 @@ def _seg_agg_cases(dev):
     return [(name, t(k), t(v), mg) for name, k, v, mg in cases]
 
 
+def _compact_cases(dev):
+    """(name, mask, streams, cap): the TPU kernel's test cases (random mask
+    with int32 extremes, all, none, alternating, count past cap) plus ragged
+    tiles, more streams than one launch carries and a single element."""
+    g = np.random.default_rng(300)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = []
+    n = 6 * 2048 + 123
+    mask = g.random(n) < 0.3
+    a = g.integers(I32_MIN, I32_MAX, n, endpoint=True).astype(np.int32)
+    b = g.integers(I32_MIN, I32_MAX, n, endpoint=True).astype(np.int32)
+    cases.append(("random_extremes", t(mask), [t(a), t(b)],
+                  int(mask.sum()) + 8))
+    n = 4 * 4096
+    a = np.arange(n, dtype=np.int32)
+    cases.append(("all_set", t(np.ones(n, bool)), [t(a)], n))
+    cases.append(("none_set", t(np.zeros(n, bool)), [t(a)], 16))
+    cases.append(("alternating", t(np.arange(n) % 2 == 0), [t(a), t(-a)],
+                  n // 2))
+    mask = g.random(n) < 0.6
+    cases.append(("count_over_cap", t(mask), [t(a), t(a * 3)],
+                  int(mask.sum()) // 2))
+    n = 1_000_003
+    cases.append(("eleven_streams", t(g.random(n) < 0.45),
+                  [t(g.integers(-9, 9, n).astype(np.int32))
+                   for _ in range(11)], n))
+    cases.append(("one_element", t(np.ones(1, bool)), [t(a[:1])], 1))
+    return cases
+
+
+def _expand_cases(dev):
+    """(name, starts, streams, cap): the TPU kernel's test cases (run
+    lengths 1-5, runs spanning many blocks, one giant run) plus no live
+    record, a first record past slot 0, pad records and eleven streams."""
+    g = np.random.default_rng(400)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def case(name, cnts, first=0, n_pad=37, nstr=2, extra=1000):
+        starts = (first + np.concatenate([[0], np.cumsum(cnts)[:-1]])
+                  ).astype(np.int32) if len(cnts) else np.zeros(0, np.int32)
+        m = len(starts) + n_pad
+        starts = np.concatenate([starts, np.full(n_pad, I32_MAX, np.int32)])
+        streams = [t(g.integers(I32_MIN, I32_MAX, m, endpoint=True)
+                     .astype(np.int32)) for _ in range(nstr)]
+        return (name, t(starts), streams, first + int(np.sum(cnts)) + extra)
+
+    return [case("run_lengths_1_5", g.integers(1, 6, 3000)),
+            case("long_runs_block_spans",
+                 np.array([5000, 1, 1, 7000, 2048, 2, 4096])),
+            case("one_giant_run", np.array([3 * 2048 + 17])),
+            case("no_records", np.zeros(0, np.int64)),
+            case("late_first_start", g.integers(1, 40, 5000), first=100),
+            case("eleven_streams", g.integers(1, 9, 20_000), nstr=11),
+            case("many_blocks", g.integers(1, 300, 200_000), n_pad=0,
+                 extra=0)]
+
+
 def _check_kernels(dev):
+    from gpu_olap_tpu_torch.ops.kernels import join_stream as js
     from gpu_olap_tpu_torch.ops.kernels.filter_agg import (
         filter_agg_i32, filter_agg_plain)
     from gpu_olap_tpu_torch.ops.kernels.seg_agg import (
@@ -187,8 +267,28 @@ def _check_kernels(dev):
         torch.cuda.synchronize()
         if err:
             raise AssertionError(f"seg_agg case {name}: max |err| {err}")
+    compact_cases = _compact_cases(dev)
+    for name, mask, streams, cap in compact_cases:
+        got = js.stream_compact_i32(mask, streams, cap)
+        exp = js.stream_compact_plain(mask, streams, cap)
+        err = _max_abs_err(got, exp)
+        torch.cuda.synchronize()
+        if err:
+            raise AssertionError(f"stream_compact case {name}: max |err| "
+                                 f"{err}")
+    expand_cases = _expand_cases(dev)
+    for name, starts, streams, cap in expand_cases:
+        got = js.expand_fill_i32(starts, streams, cap)
+        exp = js.expand_fill_plain(starts, streams, cap)
+        err = _max_abs_err(got, exp)
+        torch.cuda.synchronize()
+        if err:
+            raise AssertionError(f"expand_fill case {name}: max |err| {err}")
     _say("kernels_edge_cases", filter_agg=len(_filter_agg_cases(dev)),
-         seg_agg=len(_seg_agg_cases(dev)), exact=True)
+         seg_agg=len(_seg_agg_cases(dev)),
+         stream_compact=len(compact_cases), expand_fill=len(expand_cases),
+         exact=True)
+    del compact_cases, expand_cases
 
     gen = torch.Generator(device=dev).manual_seed(0)
     v = torch.randint(0, 1000, (FILTER_ROWS,), generator=gen, device=dev,
@@ -280,10 +380,10 @@ def _timed_query(eng, sql: str, rows: int) -> dict:
             "rows_per_s": rows / wall, "device_rows_per_s": rows / dev_s}
 
 
-def _run_engine(dev, card: str):
+def _run_bench(dev, card: str):
+    """The filter and GROUP BY bench queries (BASELINE configs 1 and 2)."""
     from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
-    from gpu_olap_tpu_torch.ops.kernels.filter_agg import filter_agg_i32
-    from gpu_olap_tpu_torch.ops.kernels.seg_agg import seg_agg_sorted_i32
+    from gpu_olap_tpu_torch.ops.kernels import _build
 
     # the settings and SQL of bench.py's configs 1 and 2, one engine each
     cfg = dict(max_groups=1 << 23, min_shape_bucket=1 << 16,
@@ -303,15 +403,13 @@ def _run_engine(dev, card: str):
     gb_sql = "SELECT k, SUM(v) AS s, MIN(v) AS mn, MAX(v) AS mx FROM t GROUP BY k"
 
     # the main path: launch counts from this run only
-    filter_agg_i32.launches = 0
-    seg_agg_sorted_i32.launches = 0
+    _build.launches.clear()
     t0 = time.perf_counter()
     fa_res = fa_eng.query(fa_sql)
     gb_res = gb_eng.query(gb_sql)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = {"filter_agg": filter_agg_i32.launches,
-                "seg_agg": seg_agg_sorted_i32.launches}
+    launches = {k: _build.launches[k] for k in ("filter_agg", "seg_agg")}
     for r in (fa_res, gb_res):
         if r.metrics["backend"] != "torch-cuda":
             raise AssertionError(f"backend {r.metrics['backend']}")
@@ -353,8 +451,235 @@ def _run_engine(dev, card: str):
          launches=launches, exact=True)
     del fa_eng, gb_eng, fa_res, gb_res, fv, gv
     torch.cuda.empty_cache()
+    return launches
 
-    # small query set against the CPU oracle
+
+@contextmanager
+def _first_call_args(module, name: str, store: dict):
+    """Keep the arguments of the first call of ``module.name`` in
+    ``store[name]``: the inputs the main path gives a kernel."""
+    orig = getattr(module, name)
+
+    def keep(*args):
+        store.setdefault(name, args)
+        return orig(*args)
+
+    setattr(module, name, keep)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _check_join_kernels(args: dict):
+    """stream_compact and expand_fill against their plain versions on the
+    inputs the stream join gave them: exact, with both times."""
+    from gpu_olap_tpu_torch.ops.kernels import join_stream as js
+
+    out = {}
+    mask, streams, cap = args["stream_compact_i32"]
+    got = js.stream_compact_i32(mask, streams, cap)
+    exp = js.stream_compact_plain(mask, streams, cap)
+    err = _max_abs_err(got, exp)
+    n_rec = int(got[1])
+    del got, exp
+    torch.cuda.synchronize()
+    out["stream_compact"] = (
+        err, _cuda_ms(lambda: js.stream_compact_i32(mask, streams, cap), 10),
+        _cuda_ms(lambda: js.stream_compact_plain(mask, streams, cap), 3))
+    shapes = {"stream_compact_elements": mask.shape[0],
+              "stream_compact_streams": len(streams),
+              "stream_compact_cap": cap, "records": n_rec}
+    del mask, streams
+
+    starts, streams, cap = args["expand_fill_i32"]
+    got = js.expand_fill_i32(starts, streams, cap)
+    exp = js.expand_fill_plain(starts, streams, cap)
+    err = _max_abs_err(got, exp)
+    del got, exp
+    torch.cuda.synchronize()
+    out["expand_fill"] = (
+        err, _cuda_ms(lambda: js.expand_fill_i32(starts, streams, cap), 10),
+        _cuda_ms(lambda: js.expand_fill_plain(starts, streams, cap), 3))
+    shapes.update(expand_fill_records=starts.shape[0],
+                  expand_fill_streams=len(streams), expand_fill_slots=cap)
+    del starts, streams
+    torch.cuda.synchronize()
+    if out["stream_compact"][0] or out["expand_fill"][0]:
+        raise AssertionError(f"kernel != plain at the join's shapes: {out}")
+    _say("kernels_join_shapes", **shapes,
+         **{f"{k}_{f}": v[i] for k, v in out.items()
+            for i, f in ((1, "ms"), (2, "plain_ms"))})
+    return out
+
+
+def _join_engine(dev, expansion: float):
+    from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+
+    # bench.py's _engine settings
+    return TorchOlapEngine(EngineConfig(
+        join_expansion=expansion, max_groups=1 << 23,
+        min_shape_bucket=1 << 16, enable_cache=False), device=dev)
+
+
+def _routed(eng, sql: str, route: str):
+    """One run of ``sql`` that must take the device route ``route`` (the
+    route the JAX engine takes for it) on the card."""
+    res = eng.query(sql)
+    torch.cuda.synchronize()
+    if route not in res.metrics["routes"]:
+        raise AssertionError(f"{sql}: route {route} not taken "
+                             f"({res.metrics['routes']})")
+    if res.metrics["backend"] != "torch-cuda":
+        raise AssertionError(f"{sql}: backend {res.metrics['backend']}")
+    return res
+
+
+def _exact(what: str, got: dict, exp: dict) -> None:
+    for k, v in exp.items():
+        g = np.asarray(got[k])
+        if g.shape != np.shape(v) or not np.array_equal(g, v):
+            raise AssertionError(f"{what}: column {k} differs from numpy")
+
+
+def _per_query(eng, sql, rows, route, extra=None) -> dict:
+    torch.cuda.reset_peak_memory_stats()
+    stats = _timed_query(eng, sql, rows)
+    return {"route": route, **(extra or {}), **stats,
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _run_joins(dev, card: str):
+    """The join path at full width: five queries, each exact against numpy
+    on the route the JAX engine takes."""
+    from gpu_olap_tpu_torch.ops.kernels import _build
+    from gpu_olap_tpu_torch.ops.kernels import join_stream as js
+
+    stream_r = "torch_join_stream_path"
+    sorted_r = "torch_sorted_global_join_agg"
+    queries = {}
+
+    # -- the `join` tables (bench_join, seed 2) with value columns ---------
+    eng = _join_engine(dev, 2.2)
+    rng = np.random.default_rng(2)
+    lk = rng.integers(0, JOIN_KEYS, JOIN_ROWS).astype(np.int64)
+    rk = rng.integers(0, JOIN_KEYS, JOIN_ROWS).astype(np.int64)
+    lv = rng.integers(0, 1000, JOIN_ROWS).astype(np.int64)
+    rw = rng.integers(0, 1000, JOIN_ROWS).astype(np.int64)
+    eng.register("l", {"k": lk, "v": lv})
+    eng.register("r", {"k": rk, "w": rw})
+    stream_sql = ("SELECT COUNT(*) AS n, SUM(l.v + r.w) AS s, "
+                  "MIN(l.v - r.w) AS mn FROM l JOIN r ON l.k = r.k")
+    grouped_sql = ("SELECT r.w AS g, COUNT(*) AS n, SUM(l.v) AS s "
+                   "FROM l JOIN r ON l.k = r.k GROUP BY r.w")
+    join_sql = ("SELECT COUNT(*) AS n, SUM(l.k + r.k) AS s "
+                "FROM l JOIN r ON l.k = r.k")
+
+    # first run: uploads the tables and keeps the kernels' inputs
+    args = {}
+    t0 = time.perf_counter()
+    with _first_call_args(js, "stream_compact_i32", args), \
+            _first_call_args(js, "expand_fill_i32", args):
+        _routed(eng, stream_sql, stream_r)
+    setup_s = time.perf_counter() - t0
+    kern = _check_join_kernels(args)
+    del args
+
+    # the main path: launch counts from these runs only
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    res = {sql: _routed(eng, sql, route) for sql, route in
+           ((stream_sql, stream_r), (grouped_sql, stream_r),
+            (join_sql, sorted_r))}
+    cold_s = time.perf_counter() - t0
+    launches = {k: _build.launches[k]
+                for k in ("stream_compact", "expand_fill")}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the path did not launch: {launches}")
+
+    # exact numpy references from per-key counts and sums
+    cl = np.bincount(lk, minlength=JOIN_KEYS)
+    cr = np.bincount(rk, minlength=JOIN_KEYS)
+    suml = np.bincount(lk, weights=lv, minlength=JOIN_KEYS).astype(np.int64)
+    sumw = np.bincount(rk, weights=rw, minlength=JOIN_KEYS).astype(np.int64)
+    minl = np.full(JOIN_KEYS, 1 << 40)
+    np.minimum.at(minl, lk, lv)
+    maxw = np.full(JOIN_KEYS, -(1 << 40))
+    np.maximum.at(maxw, rk, rw)
+    both = (cl > 0) & (cr > 0)
+    n_pairs = int((cl * cr).sum())
+    _exact(stream_sql, res[stream_sql].to_pydict(), {
+        "n": [n_pairs], "s": [int((cr * suml + cl * sumw).sum())],
+        "mn": [int((minl - maxw)[both].min())]})
+    del minl, maxw, both
+    ng = np.bincount(rw, weights=cl[rk], minlength=1000).astype(np.int64)
+    sg = np.bincount(rw, weights=suml[rk], minlength=1000).astype(np.int64)
+    present = np.flatnonzero(ng > 0)
+    out = res[grouped_sql].to_pandas().sort_values("g")
+    _exact(grouped_sql, {c: out[c].to_numpy() for c in out.columns},
+           {"g": present, "n": ng[present], "s": sg[present]})
+    keys = np.arange(JOIN_KEYS, dtype=np.int64)
+    _exact(join_sql, res[join_sql].to_pydict(), {
+        "n": [n_pairs], "s": [int((2 * keys * cl * cr).sum())]})
+    del res, cl, cr, suml, sumw, ng, sg, keys, lk, rk, lv, rw
+    both_rows = 2 * JOIN_ROWS
+    queries["stream_join"] = _per_query(eng, stream_sql, both_rows, stream_r,
+                                        {"matches": n_pairs})
+    queries["stream_join_grouped"] = _per_query(
+        eng, grouped_sql, both_rows, stream_r,
+        {"matches": n_pairs, "groups": int(len(present))})
+    queries["join"] = _per_query(eng, join_sql, both_rows, sorted_r,
+                                 {"matches": n_pairs})
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- join_lookup: unique build keys (bench_join_lookup, seed 2) ---------
+    nl, nr = LOOKUP_ROWS
+    eng = _join_engine(dev, 1.25)
+    rng = np.random.default_rng(2)
+    lk = rng.integers(0, nr, nl).astype(np.int64)
+    lv = rng.integers(0, 1000, nl).astype(np.int64)
+    rw = rng.integers(0, 1000, nr).astype(np.int64)
+    eng.register("l", {"k": lk, "v": lv})
+    eng.register("r", {"k": np.arange(nr, dtype=np.int64), "w": rw})
+    sql = "SELECT COUNT(*) AS n, SUM(l.v + r.w) AS s FROM l JOIN r ON l.k = r.k"
+    _exact(sql, _routed(eng, sql, sorted_r).to_pydict(), {
+        "n": [nl], "s": [int(lv.sum() + rw[lk].sum())]})
+    del lk, lv, rw
+    queries["join_lookup"] = _per_query(eng, sql, nl + nr, sorted_r,
+                                        {"matches": nl})
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- sortmerge: ~4 duplicates per key (bench_sortmerge, seed 3) ---------
+    n = SORTMERGE_ROWS
+    nkeys = n // 4
+    eng = _join_engine(dev, 2.5)
+    rng = np.random.default_rng(3)
+    lk = rng.integers(0, nkeys, n).astype(np.int64)
+    rk = rng.integers(0, nkeys, n).astype(np.int64)
+    eng.register("l", {"k": lk})
+    eng.register("r", {"k": rk})
+    sql = "SELECT COUNT(*) AS n FROM l JOIN r ON l.k = r.k"
+    n_pairs = int((np.bincount(lk, minlength=nkeys)
+                   * np.bincount(rk, minlength=nkeys)).sum())
+    _exact(sql, _routed(eng, sql, sorted_r).to_pydict(), {"n": [n_pairs]})
+    del lk, rk
+    queries["sortmerge"] = _per_query(eng, sql, 2 * n, sorted_r,
+                                      {"matches": n_pairs})
+    del eng
+    torch.cuda.empty_cache()
+
+    _say("engine_join", card=card, setup_seconds_join_tables=setup_s,
+         cold_seconds_join_tables=cold_s, queries=queries,
+         launches=launches, exact=True)
+    return launches, kern
+
+
+def _run_oracle(dev):
+    """Small single-table and join queries against the CPU oracle."""
+    from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+
     small = TorchOlapEngine(EngineConfig(enable_cache=False), device=dev)
     oracle = TorchOlapEngine(EngineConfig(backend="cpu", enable_cache=False),
                              device="cpu")
@@ -365,6 +690,20 @@ def _run_engine(dev, card: str):
     small.register("s", {"a": g.integers(-40, 40, n), "b": g.integers(0, 9, n),
                          "c": g.integers(-1000, 1000, n),
                          "r": g.choice(["EU", "US", "APAC"], n)})
+    # join tables: duplicate keys on both sides, partial overlap, nulls, a
+    # unique key (lookup join) and string keys with different dictionaries
+    lt_v = g.normal(0, 10, 3000)
+    lt_v[g.random(3000) < 0.1] = np.nan
+    small.register("lt", {"k": g.integers(0, 300, 3000),
+                          "g": g.integers(0, 3, 3000), "v": lt_v,
+                          "tag": g.choice(["x", "y", "z"], 3000)})
+    small.register("rt", {"k": g.integers(100, 400, 2000),
+                          "g": g.integers(0, 3, 2000),
+                          "w": g.integers(0, 1000, 2000),
+                          "tag": g.choice(["y", "z", "q"], 2000)})
+    small.register("cust", {"id": np.arange(-40, 260),
+                            "name": np.array([f"c{i:03d}" for i in range(300)]),
+                            "region": g.choice(["EU", "US", "APAC"], 300)})
     queries = [
         "SELECT k, SUM(v) AS s FROM t GROUP BY k ORDER BY s DESC",
         "SELECT a, c FROM s WHERE c > 900 ORDER BY c DESC, a LIMIT 25",
@@ -373,6 +712,23 @@ def _run_engine(dev, card: str):
         "FROM s GROUP BY a, b",
         "SELECT COUNT(*) AS n, SUM(c) AS sc, MIN(c) AS mn, MAX(c) AS mx "
         "FROM s WHERE a >= 0",
+        # joins of the parity corpus's shapes
+        "SELECT l.v, r.w FROM lt l JOIN rt r ON l.k = r.k",
+        "SELECT l.v, r.w FROM lt l LEFT JOIN rt r ON l.k = r.k",
+        "SELECT l.v, r.w FROM lt l RIGHT JOIN rt r ON l.k = r.k",
+        "SELECT l.v, r.w FROM lt l FULL JOIN rt r ON l.k = r.k",
+        "SELECT l.v FROM lt l JOIN rt r ON l.k = r.k AND l.v > r.w",
+        "SELECT l.v, r.w FROM lt l JOIN rt r ON l.k = r.k AND l.g = r.g",
+        "SELECT l.tag, COUNT(*) AS n FROM lt l JOIN rt r ON l.tag = r.tag "
+        "GROUP BY l.tag",
+        "SELECT s.c, c.name FROM s JOIN cust c ON s.a = c.id WHERE s.c > 900",
+        "SELECT c.region, SUM(s.c) AS t FROM s JOIN cust c ON s.a = c.id "
+        "GROUP BY c.region",
+        "SELECT COUNT(*) AS n, SUM(l.v) AS sv, MIN(r.w) AS mw "
+        "FROM lt l JOIN rt r ON l.k = r.k",
+        "SELECT c.region, COUNT(*) AS n, SUM(r.w) AS sw FROM lt l "
+        "JOIN rt r ON l.k = r.k JOIN cust c ON l.k = c.id "
+        "WHERE l.g = 1 GROUP BY c.region",
     ]
     for q in queries:
         r = small.query(q)
@@ -386,7 +742,6 @@ def _run_engine(dev, card: str):
         _same_frame(got, exp, q)
     torch.cuda.synchronize()
     _say("engine_vs_oracle", queries=len(queries), equal=True)
-    return launches
 
 
 def main() -> int:
@@ -407,14 +762,20 @@ def main() -> int:
          nvcc_seconds=_build.build_seconds, library=_build.library_path())
 
     kern = _check_kernels(dev)
-    launches = _run_engine(dev, card)
+    launches = _run_bench(dev, card)
+    join_launches, join_kern = _run_joins(dev, card)
+    kern.update(join_kern)
+    launches.update(join_launches)
+    _run_oracle(dev)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     replaces = {"filter_agg": "gpu_olap_tpu/ops/pallas/filter_agg.py:104",
-                "seg_agg": "gpu_olap_tpu/ops/pallas/seg_agg.py:84"}
+                "seg_agg": "gpu_olap_tpu/ops/pallas/seg_agg.py:84",
+                "stream_compact": "gpu_olap_tpu/ops/pallas/join_stream.py:52",
+                "expand_fill": "gpu_olap_tpu/ops/pallas/join_stream.py:174"}
     kernels = []
-    for name in ("filter_agg", "seg_agg"):
+    for name in ("filter_agg", "seg_agg", "stream_compact", "expand_fill"):
         err, ms, plain_ms = kern[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"gpu_olap_tpu_torch/csrc/{name}.cu",

@@ -3,8 +3,11 @@
 ``TorchOlapEngine`` keeps ``OlapEngine``'s surface (``register``,
 ``load_table``, ``query``, ``query_pandas``, ``explain``, the result cache
 and the device lock) and replaces its execution with the torch device
-executor on one explicit device.  Plans the torch path does not cover run on
-the CPU oracle and say so in ``metrics["backend"] == "cpu-fallback"``.
+executor on one explicit device.  Plans the torch path does not cover
+(UNION, cross joins, out-of-core tables, multi-device meshes) run on the CPU
+oracle and say so in ``metrics["backend"] == "cpu-fallback"``.
+``metrics["routes"]`` names the device routes the query took: the
+``torch_*`` counters of ``GLOBAL_METRICS`` that its execution bumped.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from gpu_olap_tpu.config import EngineConfig
 from gpu_olap_tpu.engine import OlapEngine
 from gpu_olap_tpu.executor.cpu import CpuExecutor
 from gpu_olap_tpu.executor.result import QueryResult
-from gpu_olap_tpu.utils.metrics import Timer
+from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS, Timer
 from gpu_olap_tpu.utils.tracing import get_logger
 
 from .executor.device import DeviceExecutor, DeviceUnsupported
@@ -46,8 +49,10 @@ class TorchOlapEngine(OlapEngine):
             if hit is not None:
                 return QueryResult(hit, {"plan_seconds": t_plan.seconds,
                                          "exec_seconds": 0.0,
-                                         "backend": "result-cache"})
+                                         "backend": "result-cache",
+                                         "routes": []})
         backend = self._resolve_backend()
+        routes = []
         with Timer() as t_exec:
             if backend == "cpu":
                 batch = CpuExecutor(self.catalog, self.config).execute(physical)
@@ -60,8 +65,10 @@ class TorchOlapEngine(OlapEngine):
                     # one accelerator: queries serialize on it (the executor
                     # also mutates its table cache)
                     with self._device_lock:
+                        before = dict(GLOBAL_METRICS.counters)
                         batch = dev.execute(physical)
                         backend = dev.last_backend
+                        routes = _routes_since(before)
                 except DeviceUnsupported as e:
                     logger.info("device path unsupported (%s); CPU fallback", e)
                     backend = "cpu-fallback"
@@ -77,6 +84,7 @@ class TorchOlapEngine(OlapEngine):
             "plan_seconds": t_plan.seconds,
             "exec_seconds": t_exec.seconds,
             "backend": backend,
+            "routes": routes,
         })
 
     def _resolve_backend(self) -> str:
@@ -91,3 +99,9 @@ class TorchOlapEngine(OlapEngine):
                     self._device_executor = DeviceExecutor(
                         self.catalog, self.config, self.device)
         return self._device_executor
+
+
+def _routes_since(before: dict) -> list:
+    """The ``torch_*`` route counters bumped since the snapshot ``before``."""
+    return sorted(k for k, v in GLOBAL_METRICS.counters.items()
+                  if k.startswith("torch_") and v > before.get(k, 0))

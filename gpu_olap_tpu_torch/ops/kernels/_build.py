@@ -1,7 +1,8 @@
 """Builds and loads the package's CUDA kernels.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a`` into ONE shared
-library with a plain C interface, loaded with ``ctypes``.  The library goes
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects link into ONE shared library with a plain
+C interface, loaded with ``ctypes``.  The library goes
 to ``_build/<hash of the sources>/`` inside the package (listed in
 ``.gitignore``), so an edited source rebuilds and an unchanged one is
 reused.  Nothing here runs at import time: the first wrapper that launches
@@ -10,6 +11,7 @@ a kernel on a CUDA tensor calls :func:`load`.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import hashlib
@@ -24,15 +26,26 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
+#: kernel launches by kernel name since the last ``launches.clear()``; each
+#: wrapper adds one where it launches its kernel, so CPU calls never count
+launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
+_PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
 _SIGNATURES = {
+    "olap_stream_compact_tile": ([], ctypes.c_int),
+    "olap_stream_compact_i32": ([_P, ctypes.c_longlong, _PP, _PP,
+                                 ctypes.c_int, ctypes.c_longlong, _P, _P, _P,
+                                 _P], ctypes.c_int),
+    "olap_expand_fill_tile": ([], ctypes.c_int),
+    "olap_expand_fill_i32": ([_P, ctypes.c_longlong, ctypes.c_longlong, _PP,
+                              _PP, ctypes.c_int, _P, _P, _P], ctypes.c_int),
     "olap_filter_agg_i32": ([_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
                              _P, _P, _P, _P, _P], ctypes.c_int),
@@ -68,24 +81,35 @@ def library_path() -> str:
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16], "libolap_kernels.so")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise with the output of any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    failed = []
+    for cmd, p in zip(cmds, procs):
+        out, err = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({p.returncode}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def _compile(out: str) -> None:
     global build_seconds
     os.makedirs(os.path.dirname(out), exist_ok=True)
     t0 = time.perf_counter()
-    # compile to a temporary name and rename: a concurrent build or a
-    # killed build never leaves a half-written library at ``out``
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # objects and the library go to a temporary directory and the library is
+    # renamed into place: a concurrent or killed build never leaves a
+    # half-written library at ``out``
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
+        nvcc = _nvcc()
+        objs = [os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
+                for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, src]
+                  for o, src in zip(objs, _sources())])
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
 
 

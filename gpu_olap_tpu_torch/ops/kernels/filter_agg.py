@@ -121,9 +121,5 @@ def filter_agg_i32(filt: torch.Tensor, op: str, threshold: int, cols,
             want_sum, want_mm, count.data_ptr(), sums.data_ptr(),
             mins.data_ptr(), maxs.data_ptr(), stream)
     _build.check(err, "filter_agg launch")
-    filter_agg_i32.launches += 1
+    _build.launches["filter_agg"] += 1
     return count[0], [(sums[i], mins[i], maxs[i]) for i in range(k)]
-
-
-#: kernel launches since the count was last reset (CPU calls do not count)
-filter_agg_i32.launches = 0

@@ -94,9 +94,5 @@ def seg_agg_sorted_i32(keys_sorted: torch.Tensor, vals_sorted: torch.Tensor,
             key_g.data_ptr(), cnt_g.data_ptr(), sum_g.data_ptr(),
             mn_g.data_ptr(), mx_g.data_ptr(), n_groups.data_ptr(), stream)
     _build.check(err, "seg_agg launch")
-    seg_agg_sorted_i32.launches += 1
+    _build.launches["seg_agg"] += 1
     return key_g, cnt_g, sum_g, mn_g, mx_g, n_groups
-
-
-#: kernel launches since the count was last reset (CPU calls do not count)
-seg_agg_sorted_i32.launches = 0

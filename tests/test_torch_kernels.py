@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from gpu_olap_tpu_torch.ops.kernels import _build
 from gpu_olap_tpu_torch.ops.kernels import filter_agg as tfa
 from gpu_olap_tpu_torch.ops.kernels import seg_agg as tsa
 
@@ -112,7 +113,7 @@ def test_filter_agg_plain_sentinels_when_nothing_matches():
 
 def test_filter_agg_rejects_bad_inputs():
     v = torch.arange(10, dtype=torch.int32)
-    launches = tfa.filter_agg_i32.launches
+    launches = _build.launches["filter_agg"]
     with pytest.raises(ValueError):
         tfa.filter_agg_i32(v.to(torch.int64), "gt", 0, ())
     with pytest.raises(ValueError):
@@ -121,7 +122,7 @@ def test_filter_agg_rejects_bad_inputs():
         tfa.filter_agg_i32(v, "gt", 0, (v[:5],))
     with pytest.raises(ValueError):
         tfa.filter_agg_i32(v, "gt", 0, (v,), n_valid=11)
-    assert tfa.filter_agg_i32.launches == launches  # CPU tensors never launch
+    assert _build.launches["filter_agg"] == launches  # CPU tensors never launch
 
 
 @pytest.mark.cuda
@@ -139,12 +140,12 @@ def test_filter_agg_cuda_matches_plain(case):
 def test_filter_agg_cuda_counts_only_real_launches():
     dev = _cuda_device()
     v = torch.arange(1000, dtype=torch.int32, device=dev)
-    launches = tfa.filter_agg_i32.launches
+    launches = _build.launches["filter_agg"]
     count, ((s, mn, mx),) = tfa.filter_agg_i32(v, "gt", 0, (v,), n_valid=0)
     assert (int(count), int(s), int(mn), int(mx)) == (0, 0, I32_MAX, I32_MIN)
-    assert tfa.filter_agg_i32.launches == launches  # no row: no launch
+    assert _build.launches["filter_agg"] == launches  # no row: no launch
     tfa.filter_agg_i32(v, "gt", 0, (v,))
-    assert tfa.filter_agg_i32.launches == launches + 1
+    assert _build.launches["filter_agg"] == launches + 1
 
 
 # ---------------------------------------------------------------------------
@@ -237,14 +238,14 @@ def test_seg_agg_plain_matches_pallas(case, interpret_mode):
 
 def test_seg_agg_rejects_bad_inputs():
     k = torch.arange(10, dtype=torch.int32)
-    launches = tsa.seg_agg_sorted_i32.launches
+    launches = _build.launches["seg_agg"]
     with pytest.raises(ValueError):
         tsa.seg_agg_sorted_i32(k.to(torch.int64), k.to(torch.int64), 4)
     with pytest.raises(ValueError):
         tsa.seg_agg_sorted_i32(k, k[:5], 4)
     with pytest.raises(ValueError):
         tsa.seg_agg_sorted_i32(k[:0], k[:0], 4)
-    assert tsa.seg_agg_sorted_i32.launches == launches  # CPU tensors never launch
+    assert _build.launches["seg_agg"] == launches  # CPU tensors never launch
 
 
 @pytest.mark.cuda
@@ -256,6 +257,228 @@ def test_seg_agg_cuda_matches_plain(case):
                                  torch.from_numpy(vals).to(dev), max_groups)
     exp = tsa.seg_agg_plain(torch.from_numpy(keys), torch.from_numpy(vals),
                             max_groups)
+    torch.cuda.synchronize()
+    for g, e in zip(got, exp):
+        np.testing.assert_array_equal(g.cpu().numpy(), e.numpy())
+
+
+# ---------------------------------------------------------------------------
+# stream_compact and expand_fill: the cases of test_pallas_kernels.py
+# (the JAX kernels take inputs padded to their 2048-element step; the
+# port's take exact lengths)
+# ---------------------------------------------------------------------------
+
+from gpu_olap_tpu_torch.ops.kernels import join_stream as tjs  # noqa: E402
+
+
+def _pad(x, fill):
+    return np.concatenate([x, np.full((-len(x)) % SB, fill, x.dtype)])
+
+
+def _compact_case(name):
+    """(mask bool, [streams int32], cap)."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if name == "random_extremes":
+        n = 6 * SB + 123
+        mask = rng.random(n) < 0.3
+        a = rng.integers(I32_MIN, I32_MAX, n, endpoint=True).astype(np.int32)
+        b = rng.integers(I32_MIN, I32_MAX, n, endpoint=True).astype(np.int32)
+        a[:3] = [I32_MIN, I32_MAX, 0]
+        mask[:3] = True
+        return mask, [a, b], int(mask.sum()) + 8
+    n = 4 * SB
+    a = np.arange(n, dtype=np.int32)
+    if name == "all_set":
+        return np.ones(n, bool), [a], n
+    if name == "none_set":
+        return np.zeros(n, bool), [a], 16
+    if name == "alternating":
+        return np.arange(n) % 2 == 0, [a, -a], n // 2
+    if name == "count_over_cap":
+        mask = rng.random(n) < 0.6
+        return mask, [a, a * 3], int(mask.sum()) // 2
+    raise KeyError(name)
+
+
+COMPACT_CASES = ["random_extremes", "all_set", "none_set", "alternating",
+                 "count_over_cap"]
+
+
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_stream_compact_plain_matches_pallas(case):
+    import jax
+
+    from gpu_olap_tpu.ops.pallas import join_stream as js
+
+    assert js.SB == SB
+    mask, streams, cap = _compact_case(case)
+    jouts, jcnt = js.stream_compact_i32(
+        jax.numpy.asarray(_pad(mask, False)),
+        [jax.numpy.asarray(_pad(s, 0)) for s in streams], cap, True)
+    outs, cnt = tjs.stream_compact_i32(
+        torch.from_numpy(mask), [torch.from_numpy(s) for s in streams], cap)
+    assert int(cnt) == int(jcnt) == int(mask.sum())  # exact past cap too
+    k = min(int(cnt), cap)
+    for o, jo in zip(outs, jouts):
+        assert o.shape == (cap,) and o.dtype == torch.int32
+        np.testing.assert_array_equal(o.numpy()[:k], np.asarray(jo)[:k])
+        assert not o.numpy()[k:].any()  # slots past the count are zero
+
+
+def _expand_case(name):
+    """(starts int32, [streams int32], cap, total): live records first, then
+    INT32_MAX pads."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if name == "run_lengths_1_5":
+        cnts = rng.integers(1, 6, 3000)
+    elif name == "long_runs_block_spans":
+        cnts = np.array([5000, 1, 1, 7000, 2048, 2, 4096])
+    elif name == "one_giant_run":
+        cnts = np.array([3 * SB + 17])
+    elif name == "no_records":
+        cnts = np.zeros(0, np.int64)
+    else:
+        raise KeyError(name)
+    m = len(cnts)
+    starts = np.concatenate([[0], np.cumsum(cnts)[:-1]]).astype(np.int32) \
+        if m else np.zeros(0, np.int32)
+    total = int(cnts.sum())
+    va = rng.integers(I32_MIN, I32_MAX, m, endpoint=True).astype(np.int32)
+    vb = rng.integers(0, 1 << 30, m).astype(np.int32)
+    n_pad = 37  # pad records, as a caller masks records past its count
+    starts = np.concatenate([starts, np.full(n_pad, I32_MAX, np.int32)])
+    streams = [np.concatenate([v, rng.integers(-9, 9, n_pad).astype(np.int32)])
+               for v in (va, vb)]
+    return starts, streams, total + 1000, total
+
+
+EXPAND_CASES = ["run_lengths_1_5", "long_runs_block_spans", "one_giant_run",
+                "no_records"]
+
+
+@pytest.mark.parametrize("case", EXPAND_CASES)
+def test_expand_fill_plain_matches_pallas(case):
+    import jax
+
+    from gpu_olap_tpu.ops.pallas import join_stream as js
+
+    starts, streams, cap, total = _expand_case(case)
+    # the JAX kernel wants 2048-multiples and 2304 pad records of headroom
+    m_pad = -(-(len(starts) + 2304) // SB) * SB
+    jstarts = np.concatenate([starts, np.full(m_pad - len(starts), I32_MAX,
+                                              np.int32)])
+    jstreams = [np.concatenate([s, np.zeros(m_pad - len(s), np.int32)])
+                for s in streams]
+    jcap = -(-cap // SB) * SB
+    exp = js.expand_fill_i32(jax.numpy.asarray(jstarts),
+                             [jax.numpy.asarray(s) for s in jstreams], jcap,
+                             True)
+    got = tjs.expand_fill_i32(torch.from_numpy(starts),
+                              [torch.from_numpy(s) for s in streams], cap)
+    assert len(got) == len(streams) + 1
+    for g, e in zip(got, exp):
+        assert g.shape == (cap,) and g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy()[:total], np.asarray(e)[:total])
+    # past the total: the last live record is replicated
+    if total:
+        last = int(np.flatnonzero(starts != I32_MAX)[-1])
+        tail = slice(total, cap)
+        np.testing.assert_array_equal(
+            got[0].numpy()[tail], np.arange(total, cap) - starts[last])
+        for g, s in zip(got[1:], streams):
+            assert (g.numpy()[tail] == s[last]).all()
+
+
+def test_join_stream_kernels_reject_bad_inputs():
+    s = torch.tensor([0, 3, 3, I32_MAX], dtype=torch.int32)
+    v = torch.arange(4, dtype=torch.int32)
+    launches = (_build.launches["stream_compact"],
+                _build.launches["expand_fill"])
+    with pytest.raises(ValueError):  # starts must increase strictly
+        tjs.expand_fill_i32(s, [v], 8)
+    with pytest.raises(ValueError):  # pads only at the end
+        tjs.expand_fill_i32(torch.tensor([0, I32_MAX, 5], dtype=torch.int32),
+                            [v[:3]], 8)
+    with pytest.raises(ValueError):
+        tjs.expand_fill_i32(s.to(torch.int64), [v], 8)
+    with pytest.raises(ValueError):
+        tjs.stream_compact_i32(v > 1, [v.to(torch.int64)], 4)
+    with pytest.raises(ValueError):
+        tjs.stream_compact_i32(v.to(torch.float32), [v], 4)
+    with pytest.raises(ValueError):  # the mask is bool only
+        tjs.stream_compact_i32(v, [v], 4)
+    with pytest.raises(ValueError):
+        tjs.stream_compact_i32(v > 1, [v[:3]], 4)
+    assert (_build.launches["stream_compact"],
+            _build.launches["expand_fill"]) == launches  # CPU never launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_stream_compact_cuda_matches_plain(case):
+    dev = _cuda_device()
+    mask, streams, cap = _compact_case(case)
+    tm = torch.from_numpy(mask)
+    ts = [torch.from_numpy(s) for s in streams]
+    launches = _build.launches["stream_compact"]
+    outs, cnt = tjs.stream_compact_i32(tm.to(dev), [s.to(dev) for s in ts],
+                                       cap)
+    eouts, ecnt = tjs.stream_compact_plain(tm, ts, cap)
+    torch.cuda.synchronize()
+    assert _build.launches["stream_compact"] == launches + 1
+    assert int(cnt) == int(ecnt)
+    for o, e in zip(outs, eouts):
+        np.testing.assert_array_equal(o.cpu().numpy(), e.numpy())
+
+
+@pytest.mark.cuda
+def test_stream_compact_cuda_many_streams():
+    """More streams than one launch carries: the scatter runs per group."""
+    dev = _cuda_device()
+    rng = np.random.default_rng(5)
+    n = 100_003
+    mask = torch.from_numpy(rng.random(n) < 0.4)
+    streams = [torch.from_numpy(rng.integers(-1000, 1000, n).astype(np.int32))
+               for _ in range(11)]
+    outs, cnt = tjs.stream_compact_i32(mask.to(dev),
+                                       [s.to(dev) for s in streams], n)
+    eouts, ecnt = tjs.stream_compact_plain(mask, streams, n)
+    torch.cuda.synchronize()
+    assert int(cnt) == int(ecnt)
+    for o, e in zip(outs, eouts):
+        np.testing.assert_array_equal(o.cpu().numpy(), e.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EXPAND_CASES)
+def test_expand_fill_cuda_matches_plain(case):
+    dev = _cuda_device()
+    starts, streams, cap, _total = _expand_case(case)
+    ts = torch.from_numpy(starts)
+    tstreams = [torch.from_numpy(s) for s in streams]
+    launches = _build.launches["expand_fill"]
+    got = tjs.expand_fill_i32(ts.to(dev), [s.to(dev) for s in tstreams], cap)
+    exp = tjs.expand_fill_plain(ts, tstreams, cap)
+    torch.cuda.synchronize()
+    assert _build.launches["expand_fill"] == launches + 1
+    for g, e in zip(got, exp):
+        np.testing.assert_array_equal(g.cpu().numpy(), e.numpy())
+
+
+@pytest.mark.cuda
+def test_expand_fill_cuda_many_streams_and_late_first_start():
+    """Eleven streams (two fill launches) and a first record that starts
+    past slot 0: the slots before it get off = slot and zeros."""
+    dev = _cuda_device()
+    rng = np.random.default_rng(6)
+    cnts = rng.integers(1, 40, 5000)
+    starts = (100 + np.concatenate([[0], np.cumsum(cnts)[:-1]])).astype(np.int32)
+    streams = [torch.from_numpy(rng.integers(-9, 9, 5000).astype(np.int32))
+               for _ in range(11)]
+    cap = int(starts[-1]) + 5000
+    got = tjs.expand_fill_i32(torch.from_numpy(starts).to(dev),
+                              [s.to(dev) for s in streams], cap)
+    exp = tjs.expand_fill_plain(torch.from_numpy(starts), streams, cap)
     torch.cuda.synchronize()
     for g, e in zip(got, exp):
         np.testing.assert_array_equal(g.cpu().numpy(), e.numpy())
