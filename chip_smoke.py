@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py      # about 2 to 2.5 minutes on one H100
+    python3 chip_smoke.py      # about 2.5 to 3 minutes on one H100
 
 Phases, each printing one JSON line:
 
@@ -20,11 +20,26 @@ Phases, each printing one JSON line:
    stream_compact and expand_fill must launch;
 7. kernels_join_shapes: stream_compact and expand_fill against their plain
    versions on the inputs the stream join gave them, with both times;
-8. engine_vs_oracle: small single-table and join queries against the CPU
-   oracle.
+8. engine_vs_oracle: small single-table, join and UNION ALL queries against
+   the CPU oracle;
+9. dist_step (uniform, then Zipf): BASELINE config 5's distributed join +
+   group-by step (``bench_dist.py``'s data and capacity planning, through
+   ``partition_histogram`` and so the radix_hist kernel) on a mesh of eight
+   logical shards on the card, 2^22 rows per shard per side, exact against
+   numpy with no overflow;
+10. kernels_dist_shapes: radix_hist against its plain version on 200M keys
+    at shifts 0, 8, 16 and 24 and on the step's partition ids (8 and 1
+    shards), with both times;
+11. engine_distributed: ``TorchOlapEngine`` with ``mesh_shape=(8,)`` on the
+    same logical mesh: the distributed query corpus on 1M rows against the
+    CPU oracle, then a config-5 SQL join + GROUP BY on 8M rows per side
+    (uniform, then Zipf keys on the skew-broadcast route), exact against
+    numpy.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Any failure raises.
+The eight shards on one card measure the distributed code path, not
+scaling.  The line before the last is a JSON object with one entry per
+kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failure
+raises.
 """
 
 from __future__ import annotations
@@ -52,6 +67,14 @@ LOOKUP_ROWS = (100_000_000, 10_000_000)
 SORTMERGE_ROWS = 25_000_000
 # warm runs per bench query; the engine line reports their median
 REPS = 11
+# BASELINE config 5 (bench_dist.py): 8 logical shards on the card, 2^22 rows
+# per shard per side; the engine's distributed corpus and SQL join sizes
+DIST_SHARDS = 8
+DIST_ROWS_PER_SHARD = 1 << 22
+DIST_REPS = 5
+DIST_CORPUS_ROWS = 1 << 20
+DIST_JOIN_ROWS = 1 << 23
+RADIX_ROWS = 200_000_000
 
 
 def _say(phase: str, **kv) -> None:
@@ -245,8 +268,28 @@ def _expand_cases(dev):
                  extra=0)]
 
 
+def _radix_cases(dev):
+    """(name, keys): the TPU kernel's test shapes (a length off its
+    16384-key block, negative keys) plus empty, one key, one bin and the
+    int32 extremes."""
+    g = np.random.default_rng(500)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+    rand = g.integers(I32_MIN, I32_MAX, 100_003, endpoint=True)
+    return [("n_0", t(rand[:0])), ("n_1", t(rand[:1])),
+            ("n_16383", t(rand[:16383])), ("n_16385", t(rand[:16385])),
+            ("one_bin", t(np.full(70_001, 0x5A5A5A5A))),
+            ("negative", t(-np.abs(rand) - 1)),
+            ("extremes", t(np.concatenate([np.full(999, I32_MIN),
+                                           np.full(1001, I32_MAX), rand]))),
+            ("unaligned_view", t(rand)[3:])]
+
+
 def _check_kernels(dev):
     from gpu_olap_tpu_torch.ops.kernels import join_stream as js
+    from gpu_olap_tpu_torch.ops.kernels import partition as rp
     from gpu_olap_tpu_torch.ops.kernels.filter_agg import (
         filter_agg_i32, filter_agg_plain)
     from gpu_olap_tpu_torch.ops.kernels.seg_agg import (
@@ -284,11 +327,21 @@ def _check_kernels(dev):
         torch.cuda.synchronize()
         if err:
             raise AssertionError(f"expand_fill case {name}: max |err| {err}")
+    radix_cases = _radix_cases(dev)
+    for name, keys in radix_cases:
+        for shift in (0, 8, 16, 24, 31):
+            got = rp.radix_histogram_i32(keys, shift)
+            exp = rp.radix_histogram_plain(keys, shift)
+            err = _max_abs_err(got, exp)
+            torch.cuda.synchronize()
+            if err:
+                raise AssertionError(f"radix_hist case {name} shift {shift}: "
+                                     f"max |err| {err}")
     _say("kernels_edge_cases", filter_agg=len(_filter_agg_cases(dev)),
          seg_agg=len(_seg_agg_cases(dev)),
          stream_compact=len(compact_cases), expand_fill=len(expand_cases),
-         exact=True)
-    del compact_cases, expand_cases
+         radix_hist=5 * len(radix_cases), exact=True)
+    del compact_cases, expand_cases, radix_cases
 
     gen = torch.Generator(device=dev).manual_seed(0)
     v = torch.randint(0, 1000, (FILTER_ROWS,), generator=gen, device=dev,
@@ -729,6 +782,10 @@ def _run_oracle(dev):
         "SELECT c.region, COUNT(*) AS n, SUM(r.w) AS sw FROM lt l "
         "JOIN rt r ON l.k = r.k JOIN cust c ON l.k = c.id "
         "WHERE l.g = 1 GROUP BY c.region",
+        # UNION ALL: strings over two dictionaries, int with float
+        "SELECT r, c, a FROM s WHERE a = 3 UNION ALL "
+        "SELECT region, id, v FROM cust JOIN t ON cust.id = t.k "
+        "WHERE t.v < 30",
     ]
     for q in queries:
         r = small.query(q)
@@ -742,6 +799,316 @@ def _run_oracle(dev):
         _same_frame(got, exp, q)
     torch.cuda.synchronize()
     _say("engine_vs_oracle", queries=len(queries), equal=True)
+
+
+# ---------------------------------------------------------------------------
+# the distributed path: BASELINE config 5 on a logical mesh
+# ---------------------------------------------------------------------------
+
+def _config5_data(n: int, zipf: bool):
+    """``bench_dist.py``'s tables (seed 0, ``n_keys = n // 16``): probe keys
+    uniform or Zipf(1.5), build keys uniform, values in [1, 100)."""
+    rng = np.random.default_rng(0)
+    n_keys = max(n // 16, 64)
+    if zipf:
+        # a=1.5: the hot key carries ~38 % of the probe rows
+        lk = np.clip(rng.zipf(1.5, n).astype(np.int64), 1, n_keys) - 1
+    else:
+        lk = rng.integers(0, n_keys, n).astype(np.int64)
+    rk = rng.integers(0, n_keys, n).astype(np.int64)
+    lv = rng.integers(1, 100, n).astype(np.int64)
+    rv = rng.integers(1, 100, n).astype(np.int64)
+    return n_keys, lk, rk, lv, rv
+
+
+def _per_key_join(n_keys, lk, rk, lv, rv):
+    """Per join key: COUNT(*) and SUM(l.v * r.v) of the inner join, from
+    each side's per-key counts and sums (exact in int64)."""
+    cl = np.bincount(lk, minlength=n_keys)
+    cr = np.bincount(rk, minlength=n_keys)
+    sl = np.bincount(lk, weights=lv, minlength=n_keys).astype(np.int64)
+    sr = np.bincount(rk, weights=rv, minlength=n_keys).astype(np.int64)
+    return cl * cr, sl * sr
+
+
+def _config5_step(dev, zipf: bool):
+    """BASELINE config 5 on the logical mesh: ``bench_dist.py``'s tables
+    and its capacity planning (``bench_dist.py:55-81``, through
+    ``partition_histogram`` on the card, so radix_hist).  Returns (step,
+    per-shard args, plan facts, host tables)."""
+    from gpu_olap_tpu_torch.parallel import dist_ops, skew
+    from gpu_olap_tpu_torch.parallel.mesh import make_mesh, shard_rows
+
+    ndev, per = DIST_SHARDS, DIST_ROWS_PER_SHARD
+    n = ndev * per
+    tables = _config5_data(n, zipf)
+    n_keys, lk, rk, lv, rv = tables
+    mesh = make_mesh(ndev, [dev] * ndev)
+    heavy = np.zeros(0, dtype=np.int64)
+    rk_d = torch.from_numpy(rk).to(dev)
+    if zipf:
+        heavy = skew.detect_heavy_keys(lk, row_threshold=max(256, per // 4))
+        lk_d = torch.from_numpy(lk[~np.isin(lk, heavy)]).to(dev)
+    else:
+        lk_d = torch.from_numpy(lk).to(dev)
+    hist = skew.partition_histogram(lk_d, ndev).cpu().numpy()
+    rhist = skew.partition_histogram(rk_d, ndev).cpu().numpy()
+    del lk_d, rk_d
+    capacity = max(
+        skew.recommend_capacity(hist, ndev, headroom=1.6 if zipf else 1.3),
+        skew.recommend_capacity(rhist, ndev, headroom=1.3))
+    join_capacity = per * (32 if zipf else 24)
+    max_groups = min(n_keys, 1 << 20)
+    if heavy.size:
+        heavy_build_cap = max(256, 4 * max(n // n_keys, 1) * int(heavy.size))
+        step = dist_ops.make_dist_join_groupby_skew(
+            mesh, capacity=capacity, join_capacity=join_capacity,
+            max_groups=max_groups, agg_funcs=("sum", "count"),
+            heavy_keys=heavy, heavy_build_cap=heavy_build_cap)
+    else:
+        step = dist_ops.make_dist_join_groupby(
+            mesh, capacity=capacity, join_capacity=join_capacity,
+            max_groups=max_groups, agg_funcs=("sum", "count"))
+    valid = shard_rows(mesh, np.ones(n, bool), False)
+    args = (shard_rows(mesh, lk), valid, shard_rows(mesh, lv),
+            shard_rows(mesh, rk), valid, shard_rows(mesh, rv))
+    facts = {"capacity": capacity, "join_capacity": join_capacity,
+             "heavy_keys": int(heavy.size),
+             "heavy_probe_share": float(np.isin(lk, heavy).mean())}
+    return step, args, facts, tables
+
+
+def _dist_step_case(dev, zipf: bool):
+    """One config-5 step: planning, the fused step on the mesh, an exact
+    per-key check against numpy, warm timing and peak memory."""
+    ndev, per = DIST_SHARDS, DIST_ROWS_PER_SHARD
+    n = ndev * per
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    step, args, facts, (n_keys, lk, rk, lv, rv) = _config5_step(dev, zipf)
+    input_bytes = torch.cuda.memory_allocated() - mem0
+    plan_s = time.perf_counter() - t0
+    capacity, join_capacity = facts["capacity"], facts["join_capacity"]
+
+    gkeys, (sums, counts), gvalid, overflow = step(*args)
+    if bool(overflow):
+        raise AssertionError(f"config-5 step overflowed (zipf={zipf}, "
+                             f"capacity={capacity}, join={join_capacity})")
+    got_n = np.zeros(n_keys, np.int64)
+    got_s = np.zeros(n_keys, np.int64)
+    for k, sm, c, v in zip(gkeys, sums, counts, gvalid):
+        v = v.cpu().numpy()
+        # a heavy key's groups sit on several shards: merge them
+        np.add.at(got_n, k.cpu().numpy()[v], c.cpu().numpy()[v])
+        np.add.at(got_s, k.cpu().numpy()[v], sm.cpu().numpy()[v])
+    exp_n, exp_s = _per_key_join(n_keys, lk, rk, lv, rv)
+    if not (np.array_equal(got_n, exp_n) and np.array_equal(got_s, exp_s)):
+        raise AssertionError(f"config-5 step differs from numpy (zipf={zipf})")
+    del gkeys, sums, counts, gvalid
+    walls = []
+    for _ in range(DIST_REPS):
+        t1 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        if bool(out[3]):
+            raise AssertionError("config-5 step overflowed on a warm run")
+        del out
+    peak = torch.cuda.max_memory_allocated() - mem0
+    # reckoning: the inputs, send and receive blocks of both sides' shuffle
+    # (key, value, valid), and one shard's match buffer with its int64
+    # expansion temporaries (about 48 B a slot)
+    shuffle_bytes = 2 * 2 * ndev * ndev * capacity * 17
+    reckoned = input_bytes + shuffle_bytes + join_capacity * 48
+    wall = float(np.median(walls))
+    return {"zipf": zipf, "shards": ndev, "rows_per_shard_per_side": per,
+            "rows_both_sides": 2 * n, "matches": int(exp_n.sum()),
+            "groups": int((exp_n > 0).sum()), **facts,
+            "setup_seconds": plan_s, "wall_median_s": wall,
+            "wall_min_s": min(walls), "wall_max_s": max(walls),
+            "runs": DIST_REPS, "rows_per_s": 2 * n / wall,
+            "peak_device_bytes": peak, "input_bytes": input_bytes,
+            "reckoned_peak_bytes": reckoned,
+            "peak_over_reckoning": peak / reckoned,
+            "overflow": False, "exact": True}, lk
+
+
+def _run_dist_step(dev, card: str):
+    """BASELINE config 5 at full single-card width, uniform then Zipf; the
+    radix_hist launches of the capacity planning are the path's."""
+    from gpu_olap_tpu_torch.ops.kernels import _build
+
+    _build.launches.clear()
+    uniform, lk = _dist_step_case(dev, zipf=False)
+    torch.cuda.empty_cache()
+    zipf, _ = _dist_step_case(dev, zipf=True)
+    launches = {"radix_hist": _build.launches["radix_hist"]}
+    if not launches["radix_hist"]:
+        raise AssertionError("radix_hist did not launch on the dist path")
+    for case in (uniform, zipf):
+        if case["peak_device_bytes"] > 70e9:
+            raise AssertionError(f"dist step peak {case['peak_device_bytes']}"
+                                 " B: halve DIST_ROWS_PER_SHARD")
+    _say("dist_step", card=card, logical_mesh="8 shards on one card: the "
+         "code path, not scaling", uniform=uniform, zipf=zipf,
+         launches=launches)
+    torch.cuda.empty_cache()
+    return launches, lk
+
+
+def _check_dist_kernels(dev, lk: np.ndarray):
+    """radix_hist against its plain version at 200M keys (shifts 0, 8, 16,
+    24) and on the step's partition ids for 8 and 1 shards."""
+    from gpu_olap_tpu_torch.ops.hashing import partition_of
+    from gpu_olap_tpu_torch.ops.kernels import partition as rp
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    keys = torch.randint(I32_MIN, I32_MAX, (RADIX_ROWS,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    err = 0
+    for shift in (0, 8, 16, 24):
+        err = max(err, _max_abs_err(rp.radix_histogram_i32(keys, shift),
+                                    rp.radix_histogram_plain(keys, shift)))
+        out[f"keys_200m_shift{shift}_ms"] = _cuda_ms(
+            lambda: rp.radix_histogram_i32(keys, shift), 10)
+        out[f"keys_200m_shift{shift}_plain_ms"] = _cuda_ms(
+            lambda: rp.radix_histogram_plain(keys, shift), 5)
+    del keys
+    lk_d = torch.from_numpy(lk).to(dev)
+    main = None
+    for ndev in (DIST_SHARDS, 1):
+        dest = partition_of(lk_d, ndev)
+        err = max(err, _max_abs_err(rp.radix_histogram_i32(dest, 0),
+                                    rp.radix_histogram_plain(dest, 0)))
+        ms = _cuda_ms(lambda: rp.radix_histogram_i32(dest, 0), 10)
+        plain_ms = _cuda_ms(lambda: rp.radix_histogram_plain(dest, 0), 5)
+        out[f"config5_ndev{ndev}_ms"] = ms
+        out[f"config5_ndev{ndev}_plain_ms"] = plain_ms
+        if main is None:
+            main = (ms, plain_ms)
+        del dest
+    del lk_d
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"radix_hist != plain at the dist shapes: {err}")
+    _say("kernels_dist_shapes", radix_rows=RADIX_ROWS,
+         config5_keys=int(lk.shape[0]), **out, exact=True)
+    return {"radix_hist": (err, *main)}
+
+
+# the distributed corpus of tests/test_dist_executor.py and its top-k queries
+DIST_CORPUS = [
+    "SELECT k, COUNT(*) AS n, SUM(v) AS s FROM t GROUP BY k",
+    "SELECT k, SUM(v) AS s, MIN(v) AS mn, MAX(f) AS mx, AVG(f) AS a "
+    "FROM t GROUP BY k",
+    "SELECT k, SUM(v) AS s FROM t WHERE v > 100 GROUP BY k",
+    "SELECT k, SUM(v * 2 + 1) AS s FROM t WHERE year = 2024 GROUP BY k",
+    "SELECT COUNT(*) AS n, SUM(v) AS s FROM t WHERE v > 500",
+    "SELECT k, SUM(v) AS s FROM t GROUP BY k HAVING s > 5000 "
+    "ORDER BY s DESC LIMIT 20",
+    "SELECT year, k, COUNT(*) AS n FROM t GROUP BY year, k",
+    "SELECT k, COUNT(DISTINCT year) AS d, SUM(v) AS s FROM t GROUP BY k",
+    "SELECT year, COUNT(DISTINCT k) AS d, SUM(DISTINCT v) AS sd FROM t "
+    "GROUP BY year",
+    "SELECT COUNT(DISTINCT k) AS d FROM t",
+    "SELECT COUNT(DISTINCT k) AS d, SUM(DISTINCT k) AS sd FROM t WHERE v > 200",
+    "SELECT v FROM t ORDER BY v DESC LIMIT 3",
+    "SELECT k, v FROM t WHERE v > 100 ORDER BY v ASC, k DESC LIMIT 7",
+    "SELECT f FROM t ORDER BY f DESC LIMIT 5 OFFSET 2",
+]
+
+
+# BASELINE config 5 as SQL: the join + GROUP BY of the step
+DIST_JOIN_SQL = ("SELECT l.k, SUM(l.v * r.v) AS s, COUNT(*) AS n FROM l "
+                 "JOIN r ON l.k = r.k GROUP BY l.k")
+
+
+def _run_engine_distributed(dev, card: str):
+    """``TorchOlapEngine`` with an 8-shard mesh on the card: the corpus
+    against the oracle, then a config-5 SQL join + GROUP BY, uniform and
+    Zipf, exact against numpy.  Prints the kernel launches of the run:
+    the engine plans its shuffles on the host, so radix_hist is not among
+    them."""
+    from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+    from gpu_olap_tpu_torch.ops.kernels import _build
+
+    mesh = [dev] * DIST_SHARDS
+    eng = TorchOlapEngine(EngineConfig(
+        mesh_shape=(DIST_SHARDS,), join_expansion=16.0, enable_cache=False),
+        device=dev, mesh_devices=mesh)
+    oracle = TorchOlapEngine(EngineConfig(backend="cpu", enable_cache=False),
+                             device="cpu")
+    oracle.catalog = eng.catalog
+    rng = np.random.default_rng(11)
+    n = DIST_CORPUS_ROWS
+    eng.register("t", {"k": rng.integers(0, 500, n).astype(np.int64),
+                       "v": rng.integers(-50, 1000, n).astype(np.int64),
+                       "f": rng.normal(10.0, 5.0, n),
+                       "year": rng.integers(2020, 2026, n).astype(np.int64)})
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    routes = set()
+    for q in DIST_CORPUS:
+        r = eng.query(q)
+        if r.metrics["backend"] != "torch-distributed":
+            raise AssertionError(f"{q}: backend {r.metrics['backend']}")
+        routes.update(r.metrics["routes"])
+        got, exp = r.to_pandas(), oracle.query(q).to_pandas()
+        if "ORDER BY" not in q:
+            got, exp = _canon(got), _canon(exp)
+        _same_frame(got, exp, q)
+    torch.cuda.synchronize()
+    corpus_s = time.perf_counter() - t0
+    eng.drop_table("t")
+
+    sql = DIST_JOIN_SQL
+    joins = {}
+    for zipf in (False, True):
+        n_keys, lk, rk, lv, rv = _config5_data(DIST_JOIN_ROWS, zipf)
+        eng.register("l", {"k": lk, "v": lv})
+        eng.register("r", {"k": rk, "v": rv})
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = eng.query(sql)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        want = ["torch_dist_join"] + (["torch_dist_skew_broadcast"]
+                                      if zipf else [])
+        if res.metrics["backend"] != "torch-distributed" or \
+                not set(want) <= set(res.metrics["routes"]):
+            raise AssertionError(f"join zipf={zipf}: {res.metrics}")
+        exp_n, exp_s = _per_key_join(n_keys, lk, rk, lv, rv)
+        keys = np.flatnonzero(exp_n)
+        out = res.to_pandas().sort_values("k")
+        _exact(f"{sql} (zipf={zipf})",
+               {c: out[c].to_numpy() for c in out.columns},
+               {"k": keys, "s": exp_s[keys], "n": exp_n[keys]})
+        walls = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            eng.query(sql)
+            walls.append(time.perf_counter() - t1)
+        wall = float(np.median(walls))
+        joins["zipf" if zipf else "uniform"] = {
+            "rows_per_side": DIST_JOIN_ROWS, "matches": int(exp_n.sum()),
+            "groups": int(len(keys)), "routes": res.metrics["routes"],
+            "cold_seconds": cold, "wall_median_s": wall,
+            "wall_min_s": min(walls), "wall_max_s": max(walls),
+            "rows_per_s": 2 * DIST_JOIN_ROWS / wall,
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        eng.drop_table("l")
+        eng.drop_table("r")
+        del lk, rk, lv, rv, res
+    _say("engine_distributed", card=card, logical_mesh="8 shards on one "
+         "card: the code path, not scaling", corpus_queries=len(DIST_CORPUS),
+         corpus_rows=DIST_CORPUS_ROWS, corpus_seconds=corpus_s,
+         corpus_routes=sorted(routes), joins=joins,
+         launches=dict(_build.launches), equal=True)
+    del eng, oracle
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -767,15 +1134,22 @@ def main() -> int:
     kern.update(join_kern)
     launches.update(join_launches)
     _run_oracle(dev)
+    dist_launches, lk = _run_dist_step(dev, card)
+    launches.update(dist_launches)
+    kern.update(_check_dist_kernels(dev, lk))
+    del lk
+    _run_engine_distributed(dev, card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     replaces = {"filter_agg": "gpu_olap_tpu/ops/pallas/filter_agg.py:104",
                 "seg_agg": "gpu_olap_tpu/ops/pallas/seg_agg.py:84",
                 "stream_compact": "gpu_olap_tpu/ops/pallas/join_stream.py:52",
-                "expand_fill": "gpu_olap_tpu/ops/pallas/join_stream.py:174"}
+                "expand_fill": "gpu_olap_tpu/ops/pallas/join_stream.py:174",
+                "radix_hist": "gpu_olap_tpu/ops/pallas/partition.py:25"}
     kernels = []
-    for name in ("filter_agg", "seg_agg", "stream_compact", "expand_fill"):
+    for name in ("filter_agg", "seg_agg", "stream_compact", "expand_fill",
+                 "radix_hist"):
         err, ms, plain_ms = kern[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"gpu_olap_tpu_torch/csrc/{name}.cu",

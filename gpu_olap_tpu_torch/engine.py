@@ -2,9 +2,12 @@
 
 ``TorchOlapEngine`` keeps ``OlapEngine``'s surface (``register``,
 ``load_table``, ``query``, ``query_pandas``, ``explain``, the result cache
-and the device lock) and replaces its execution with the torch device
-executor on one explicit device.  Plans the torch path does not cover
-(UNION, cross joins, out-of-core tables, multi-device meshes) run on the CPU
+and the device lock) and replaces its execution with the torch executors.
+With ``config.mesh_shape[0] > 1`` a distributable plan runs on the
+``DistributedExecutor`` over a mesh of explicit devices
+(``metrics["backend"] == "torch-distributed"``); any other plan runs on the
+single-device torch executor (``torch-cuda`` or ``torch-cpu``).  Plans the
+torch path does not cover (cross joins, out-of-core tables) run on the CPU
 oracle and say so in ``metrics["backend"] == "cpu-fallback"``.
 ``metrics["routes"]`` names the device routes the query took: the
 ``torch_*`` counters of ``GLOBAL_METRICS`` that its execution bumped.
@@ -12,7 +15,7 @@ oracle and say so in ``metrics["backend"] == "cpu-fallback"``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 from gpu_olap_tpu.config import EngineConfig
 from gpu_olap_tpu.engine import OlapEngine
@@ -21,7 +24,9 @@ from gpu_olap_tpu.executor.result import QueryResult
 from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS, Timer
 from gpu_olap_tpu.utils.tracing import get_logger
 
-from .executor.device import DeviceExecutor, DeviceUnsupported
+from .executor.device import DeviceExecutor, DeviceUnsupported, _Interpreter
+from .parallel.dist_executor import DistributedExecutor, NotDistributable
+from .parallel.mesh import make_mesh, visible_devices
 from .utils.torchenv import resolve_device
 
 logger = get_logger(__name__)
@@ -29,12 +34,26 @@ logger = get_logger(__name__)
 
 class TorchOlapEngine(OlapEngine):
     """SQL engine whose device backend is PyTorch on ``device`` ("cuda",
-    "cuda:N" or "cpu").  ``"cuda"`` without a GPU raises."""
+    "cuda:N" or "cpu").  ``"cuda"`` without a GPU raises.
+
+    ``config.mesh_shape = (n,)`` with ``n > 1`` adds a mesh of ``n`` shards
+    over ``mesh_devices`` (default: the first ``n`` visible devices of
+    ``device``'s type; fewer raise).  A device may repeat:
+    ``mesh_devices=["cuda:0"] * 8`` is eight logical shards on one card."""
 
     def __init__(self, config: Optional[EngineConfig] = None,
-                 device="cuda"):
+                 device="cuda", mesh_devices: Optional[Sequence] = None):
         super().__init__(config)
         self.device = resolve_device(device)
+        self.mesh = None
+        shape = self.config.mesh_shape
+        if shape and shape[0] > 1:
+            self.mesh = make_mesh(shape[0], visible_devices(self.device.type)
+                                  if mesh_devices is None else mesh_devices)
+        elif mesh_devices is not None:
+            raise ValueError("mesh_devices needs config.mesh_shape = (n,) "
+                             "with n > 1")
+        self._dist_executor = None
 
     def execute_query(self, sql: str) -> QueryResult:
         with Timer() as t_plan:
@@ -57,22 +76,34 @@ class TorchOlapEngine(OlapEngine):
             if backend == "cpu":
                 batch = CpuExecutor(self.catalog, self.config).execute(physical)
             else:
-                try:
-                    if self.config.mesh_shape and self.config.mesh_shape[0] > 1:
-                        raise DeviceUnsupported(
-                            "distributed execution is not ported")
-                    dev = self._get_device_executor()
-                    # one accelerator: queries serialize on it (the executor
-                    # also mutates its table cache)
-                    with self._device_lock:
-                        before = dict(GLOBAL_METRICS.counters)
-                        batch = dev.execute(physical)
-                        backend = dev.last_backend
-                        routes = _routes_since(before)
-                except DeviceUnsupported as e:
-                    logger.info("device path unsupported (%s); CPU fallback", e)
-                    backend = "cpu-fallback"
-                    batch = CpuExecutor(self.catalog, self.config).execute(physical)
+                batch = None
+                if self.mesh is not None:
+                    try:
+                        with self._device_lock:
+                            before = dict(GLOBAL_METRICS.counters)
+                            batch = self._get_distributed_executor().execute(
+                                physical)
+                            routes = _routes_since(before)
+                        backend = "torch-distributed"
+                    except (NotDistributable, DeviceUnsupported) as e:
+                        logger.info("plan not distributable (%s); "
+                                    "single-device path", e)
+                if batch is None:
+                    try:
+                        dev = self._get_device_executor()
+                        # one accelerator: queries serialize on it (the
+                        # executor also mutates its table cache)
+                        with self._device_lock:
+                            before = dict(GLOBAL_METRICS.counters)
+                            batch = dev.execute(physical)
+                            backend = dev.last_backend
+                            routes = _routes_since(before)
+                    except DeviceUnsupported as e:
+                        logger.info("device path unsupported (%s); CPU "
+                                    "fallback", e)
+                        backend = "cpu-fallback"
+                        batch = CpuExecutor(self.catalog,
+                                            self.config).execute(physical)
         logger.info("query executed: plan %.2f ms, exec %.2f ms, %d rows",
                     t_plan.seconds * 1e3, t_exec.seconds * 1e3, batch.num_rows)
         if cache_key is not None:
@@ -99,6 +130,14 @@ class TorchOlapEngine(OlapEngine):
                     self._device_executor = DeviceExecutor(
                         self.catalog, self.config, self.device)
         return self._device_executor
+
+    def _get_distributed_executor(self):
+        if self._dist_executor is None:
+            with self._exec_init_lock:
+                if self._dist_executor is None:
+                    self._dist_executor = DistributedExecutor(
+                        self.catalog, self.config, _Interpreter, self.mesh)
+        return self._dist_executor
 
 
 def _routes_since(before: dict) -> list:

@@ -22,10 +22,12 @@ What the JAX executor does and this one keeps:
   join with outer extension, and the group-join rewrites;
 * string expressions are lowered against the host-side sorted dictionaries.
 
+UNION ALL concatenates its children on the device, as JAX does.
+
 What it drops, because it served XLA's static shapes or the TPU: the
 shape-bucket padding of tables (tables keep their row count), the int32
 narrowing of results for the host link, and int32 arithmetic on
-interval-proven expressions.  UNION, cross joins and out-of-core scans raise
+interval-proven expressions.  Cross joins and out-of-core scans raise
 :class:`DeviceUnsupported`, and the engine answers them on the CPU oracle.
 """
 
@@ -409,8 +411,58 @@ class _Interpreter:
             return self._limit(plan, path)
         if isinstance(plan, P.TpuDistinct):
             return self._distinct(plan, path)
-        # UNION is not ported yet
+        if isinstance(plan, P.TpuUnion):
+            return self._union(plan, path)
         raise DeviceUnsupported(type(plan).__name__)
+
+    def _union(self, plan: P.TpuUnion, path) -> DevBatch:
+        """UNION ALL: the children's columns concatenated; the row masks
+        carry each child's invalid rows (no compaction).  String columns are
+        re-coded onto the sorted union of their dictionaries; numeric
+        columns promote to a common type, floats to float64."""
+        batches = [self.exec(c, path + (i,))
+                   for i, c in enumerate(plan.children)]
+        cols: List[DevCol] = []
+        for i, f in enumerate(plan.schema):
+            parts = [b.cols[i] for b in batches]
+            if f.dtype is DType.STRING:
+                dicts = [np.asarray(c.dictionary, dtype=str) for c in parts]
+                union = np.unique(np.concatenate(dicts))
+                datas = []
+                for c, d in zip(parts, dicts):
+                    lut = torch.as_tensor(np.searchsorted(union, d),
+                                          device=self.device)
+                    datas.append(lut[torch.clamp(c.data, 0, len(d) - 1)])
+                data = torch.cat(datas)
+                dictionary = union.astype(object)
+            else:
+                common = parts[0].data.dtype
+                for c in parts[1:]:
+                    common = torch.promote_types(common, c.data.dtype)
+                if np.dtype(f.dtype.numpy_dtype).kind == "f":
+                    common = torch.promote_types(common, torch.float64)
+                data = torch.cat([c.data.to(common) for c in parts])
+                dictionary = None
+            if all(c.validity is None for c in parts):
+                valid = None
+            else:
+                valid = torch.cat([
+                    self._ones(b.capacity) if c.validity is None
+                    else c.validity for c, b in zip(parts, batches)])
+            ranges = [c.value_range for c in parts]
+            vrange = None
+            if all(r is not None for r in ranges):
+                vrange = (min(r[0] for r in ranges), max(r[1] for r in ranges))
+            cols.append(DevCol(data, valid, dictionary,
+                               all(c.int32_ok for c in parts), vrange))
+        if all(b.row_valid is None for b in batches):
+            row_valid = None
+        else:
+            row_valid = torch.cat([
+                self._ones(b.capacity) if b.row_valid is None else b.row_valid
+                for b in batches])
+        return DevBatch(plan.schema, cols, sum(b.capacity for b in batches),
+                        row_valid)
 
     def _scan(self, plan: P.TpuTableScan) -> DevBatch:
         t = self.tables[plan.table_name]

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "olap_seg_agg_tile_rows": ([], ctypes.c_int),
     "olap_seg_agg_i32": ([_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P,
                           _P, _P, _P, _P, _P, _P], ctypes.c_int),
+    "olap_radix_hist_i32": ([_P, ctypes.c_longlong, ctypes.c_int, _P, _P],
+                            ctypes.c_int),
 }
 
 

@@ -28,8 +28,20 @@ from gpu_olap_tpu_torch import TorchOlapEngine
 from gpu_olap_tpu_torch.executor import device as tdev
 from gpu_olap_tpu_torch.ops.kernels import join_stream as tjs
 
-# every query of the parity corpus, joins included
-SLICE_QUERIES = list(QUERIES)
+# every query of the parity corpus, joins included, and UNION ALL (string
+# columns over different dictionaries, int with float, nulls, a UNION
+# under an aggregate)
+SLICE_QUERIES = list(QUERIES) + [
+    "SELECT region, amount FROM sales WHERE amount > 240 UNION ALL "
+    "SELECT region, CAST(customer_id AS DOUBLE) FROM customers "
+    "WHERE customer_id < 20",
+    "SELECT k, v FROM lt UNION ALL SELECT k, w FROM rt WHERE w > 500",
+    "SELECT region, v FROM nullt UNION ALL SELECT region, amount FROM sales "
+    "WHERE quantity = 7",
+    "SELECT k, COUNT(*) AS n, SUM(v) AS s FROM (SELECT k, v FROM lt "
+    "UNION ALL SELECT k, w AS v FROM rt) u GROUP BY k",
+    "SELECT a FROM seq WHERE a < 5 UNION SELECT k FROM lt WHERE k < 8",
+]
 
 
 def _port(**kwargs):
@@ -503,10 +515,18 @@ def test_port_never_imports_jax(tmp_path):
         import sys
         import numpy as np
         from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+        from gpu_olap_tpu_torch.ops import hashing
+        from gpu_olap_tpu_torch.parallel import (
+            collectives, dist_executor, dist_ops, mesh, shuffle, skew)
         eng = TorchOlapEngine(EngineConfig(), device="cpu")
         eng.register("t", {"k": np.arange(5000) % 7, "v": np.arange(5000)})
         r = eng.query("SELECT k, SUM(v) AS s FROM t GROUP BY k")
         assert r.num_rows == 7 and r.metrics["backend"] == "torch-cpu"
+        dist = TorchOlapEngine(EngineConfig(mesh_shape=(8,)), device="cpu",
+                               mesh_devices=["cpu"] * 8)
+        dist.catalog = eng.catalog
+        r = dist.query("SELECT k, SUM(v) AS s FROM t GROUP BY k")
+        assert r.num_rows == 7 and r.metrics["backend"] == "torch-distributed"
         assert "jax" not in sys.modules, "the port imported jax"
         print("ok")
     """)

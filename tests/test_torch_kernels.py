@@ -482,3 +482,35 @@ def test_expand_fill_cuda_many_streams_and_late_first_start():
     torch.cuda.synchronize()
     for g, e in zip(got, exp):
         np.testing.assert_array_equal(g.cpu().numpy(), e.numpy())
+
+
+# ---------------------------------------------------------------------------
+# radix_hist (B5)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_radix_histogram_matches_plain():
+    """The CUDA kernel against its plain version, exactly: edge lengths,
+    one bin, negative keys, every shift the edge cases use.  (The plain
+    version against the Pallas kernel: ``test_torch_parallel.py``.)"""
+    from gpu_olap_tpu_torch.ops.kernels import partition as tpart
+    from gpu_olap_tpu_torch.parallel import skew as tskew
+
+    dev = _cuda_device()
+    rng = np.random.default_rng(6)
+    cases = [rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
+             for n in (0, 1, 16383, 16385, 1_000_003)]
+    cases.append(np.full(300_001, 7, np.int32))
+    cases.append(np.arange(200_000, dtype=np.int32) % 8)
+    before = _build.launches["radix_hist"]
+    for keys in cases:
+        k = torch.from_numpy(keys).to(dev)
+        for shift in (0, 8, 16, 24, 31):
+            got = tpart.radix_histogram_i32(k, shift)
+            torch.testing.assert_close(got.cpu(), tpart.radix_histogram_plain(
+                k, shift).cpu(), rtol=0, atol=0)
+    assert _build.launches["radix_hist"] - before == 5 * (len(cases) - 1)
+    hist = tskew.partition_histogram(torch.from_numpy(
+        rng.integers(0, 1 << 40, 100_000)).to(dev), 8)
+    assert _build.launches["radix_hist"] - before == 5 * (len(cases) - 1) + 1
+    assert int(hist.sum()) == 100_000
