@@ -7,10 +7,18 @@ Phases, each printing one JSON line:
 1. environment: the card (``nvidia-smi``), torch and CUDA versions; exits
    non-zero without CUDA;
 2. build: compiles the CUDA kernels from ``gpu_olap_tpu_torch/csrc``;
+   ptxas: each kernel's registers and spill bytes;
 3. kernels_edge_cases: each kernel (filter_agg, seg_agg, stream_compact,
-   expand_fill) against its plain PyTorch version, exactly, on edge cases;
+   expand_fill, radix_hist) against its plain PyTorch version, exactly, on
+   edge cases (seg_agg: groups over many tiles, one group of 3M rows with a
+   sum past 2^31, a group per row, ragged and one-row inputs, max_groups
+   below the group count, negative values, the INT32_MAX sentinel group,
+   an unaligned view; filter_agg: every operator, 0 to 8 value columns,
+   aliased and repeated columns, unaligned views, n_valid cuts, no match,
+   ``wants`` masks, 5M rows over many blocks);
 4. kernels_main_shapes: filter_agg and seg_agg against their plain versions
-   at the bench shapes (200M rows; 100M rows x 4M groups), with both times;
+   at the bench shapes (200M rows; 100M rows x 4M groups), with both times
+   and the bound;
 5. engine_bench: ``TorchOlapEngine(device="cuda")`` runs the filter and
    GROUP BY bench queries (exact against numpy, launch counts > 0);
 6. engine_join: the join path at full width, each query exact against
@@ -19,7 +27,9 @@ Phases, each printing one JSON line:
    (join 100M x 100M, join_lookup 100M x 10M, sortmerge 25M x 25M);
    stream_compact and expand_fill must launch;
 7. kernels_join_shapes: stream_compact and expand_fill against their plain
-   versions on the inputs the stream join gave them, with both times;
+   versions on the inputs the stream join gave them, with both times, the
+   bound and one PyTorch call for the same function (``x[:, mask]`` and
+   ``repeat_interleave`` on the stacked streams);
 8. engine_vs_oracle: small single-table, join and UNION ALL queries against
    the CPU oracle;
 9. dist_step (uniform, then Zipf): BASELINE config 5's distributed join +
@@ -29,12 +39,13 @@ Phases, each printing one JSON line:
    numpy with no overflow;
 10. kernels_dist_shapes: radix_hist against its plain version on 200M keys
     at shifts 0, 8, 16 and 24 and on the step's partition ids (8 and 1
-    shards), with both times;
+    shards), with both times, the bound and ``torch.bincount``'s;
 11. engine_distributed: ``TorchOlapEngine`` with ``mesh_shape=(8,)`` on the
     same logical mesh: the distributed query corpus on 1M rows against the
     CPU oracle, then a config-5 SQL join + GROUP BY on 8M rows per side
     (uniform, then Zipf keys on the skew-broadcast route), exact against
-    numpy.
+    numpy;
+12. standalone: neither JAX nor any module of ``gpu_olap_tpu`` was loaded.
 
 The eight shards on one card measure the distributed code path, not
 scaling.  The line before the last is a JSON object with one entry per
@@ -55,6 +66,10 @@ import torch
 
 I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 
+# H100 SXM device-memory rate (NVIDIA's data sheet): a kernel's bound_ms is
+# the bytes its function must move (each input read once, each output
+# written once) at this rate
+HBM_BYTES_PER_S = 3.35e12
 # BASELINE configs 1 and 2 (bench.py:163-208) at their full size
 FILTER_ROWS = 200_000_000
 GROUPBY_ROWS = 100_000_000
@@ -102,6 +117,10 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def _max_abs_err(a, b) -> int:
     """Largest |a - b| over tensors or nested tuples/lists of tensors."""
     if isinstance(a, (tuple, list)):
@@ -132,6 +151,7 @@ def _filter_agg_cases(dev):
                             g.integers(I32_MIN, I32_MAX, 30_001,
                                        endpoint=True)]))
     w = t(g.integers(-50, 50, 100_000))
+    cols8 = [t(g.integers(-(1 << 30), 1 << 30, 100_000)) for _ in range(8)]
     cases = [("n_valid_cut", v, "gt", 500, (v,), 100_000 - 5000, None),
              ("exact_2p30", big, "gt", 1 << 29, (big,), None, None),
              ("no_match", v, "gt", 5000, (v, w), None, None),
@@ -143,6 +163,31 @@ def _filter_agg_cases(dev):
              ("odd_offset_view", w[1:], "gt", -10, (v[1:],), None, None)]
     for op in ("gt", "ge", "lt", "le", "eq", "ne"):
         cases.append((f"op_{op}", v, op, 500, (v, w), None, None))
+    # every number of value columns 0..8, distinct from the filter (up to
+    # nine streams), then the same with the filter among them
+    for k in range(9):
+        cases.append((f"cols_{k}", v, "ge", 300, tuple(cols8[:k]), None, None))
+        cases.append((f"cols_{k}_alias", v, "lt", 600,
+                      (v,) + tuple(cols8[:max(k - 1, 0)]), None, None))
+    big_n = t(g.integers(-1000, 1000, 5_000_003))
+    cases += [
+        ("cols_repeated", v, "ne", 7, (w, v, w, cols8[0], v), None, None),
+        ("unaligned_filter_aligned_cols", v[3:], "gt", 100,
+         (w[:99_997], v[3:]), None, None),
+        ("unaligned_cols_5", w[1:], "le", 20,
+         tuple(c[1:] for c in cols8[:5]), None, None),
+        ("n_valid_1", v, "ge", 0, (v, w), 1, None),
+        ("n_valid_3", w, "ne", 1000, (w,), 3, None),
+        ("n_valid_4097", v, "gt", 10, (v, w), 4097, None),
+        ("no_match_8_cols", v, "gt", I32_MAX, tuple(cols8), None, None),
+        ("lt_int32_min", v, "lt", I32_MIN, (v,), None, None),
+        ("wants_none", v, "gt", 100, (v, w),
+         None, ((False, False), (False, False))),
+        ("wants_mixed_alias", v, "le", 500, (v, v, w),
+         None, ((True, False), (False, True), (True, True))),
+        ("many_blocks", big_n, "gt", -5, (big_n, cols8[0].repeat(51)[:5_000_003]),
+         None, None),
+        ("many_blocks_n_valid", big_n, "eq", 3, (big_n,), 4_999_001, None)]
     return cases
 
 
@@ -203,7 +248,37 @@ def _seg_agg_cases(dev):
         keys = np.sort(g.integers(-(1 << 28), 1 << 28, ng))[g.integers(0, ng, n)]
         cases.append((f"fuzz_{trial}", *co_sort(
             keys, g.integers(I32_MIN, I32_MAX, n, endpoint=True)), n + 8))
-    return [(name, t(k), t(v), mg) for name, k, v, mg in cases]
+    # look-back chains: groups of 1 to 40 tiles of 4096 rows, so tiles see
+    # long runs of predecessors that hold no group start
+    sizes = g.integers(1, 40 * 4096, 60)
+    k = np.repeat(np.arange(len(sizes)) * 11 - 300, sizes)
+    cases.append(("groups_span_many_tiles",
+                  *co_sort(k, g.integers(-(1 << 30), 1 << 30, len(k))), 64))
+    n = 3_000_001  # one group, sum far past 2^31, count n
+    cases.append(("one_group_sum_past_2p31", np.full(n, 9, np.int32),
+                  np.full(n, (1 << 30) + 7, np.int32), 2))
+    n = 1_000_003  # every row its own group, over 245 tiles
+    cases.append(("every_row_many_tiles", np.arange(n, dtype=np.int32) - 500,
+                  -np.arange(n, dtype=np.int32), n))
+    cases.append(("n_1", np.array([I32_MIN], np.int32),
+                  np.array([-7], np.int32), 3))
+    cases.append(("n_1_max_groups_0", np.array([4], np.int32),
+                  np.array([5], np.int32), 0))
+    sizes = g.integers(1, 3000, 4000)  # 4000 groups over many tiles
+    k = np.repeat(np.arange(len(sizes)) * 3, sizes)
+    kv = co_sort(k, g.integers(I32_MIN, I32_MAX, len(k), endpoint=True))
+    cases.append(("max_groups_cut_mid_tiles", *kv, 1234))
+    cases.append(("max_groups_0_many_tiles", *kv, 0))
+    n = 777_777  # negative keys and values, then the INT32_MAX sentinel group
+    k = np.sort(g.integers(-(1 << 31), -1, n))
+    k[-100_000:] = I32_MAX
+    cases.append(("negative_and_sentinel",
+                  *co_sort(k, g.integers(I32_MIN, 0, n)), n))
+    out = [(name, t(k), t(v), mg) for name, k, v, mg in cases]
+    # an unaligned view of a many-tile input: the kernel's scalar loads
+    name, k, v, mg = out[-1]
+    out.append(("unaligned_view", k[1:], v[1:], mg))
+    return out
 
 
 def _compact_cases(dev):
@@ -375,12 +450,19 @@ def _check_kernels(dev):
     if fa_err or sa_err:
         raise AssertionError(f"kernel != plain at main-path shapes: "
                              f"filter_agg {fa_err}, seg_agg {sa_err}")
+    # one stream (v is filter and value) read; count, sum, min, max written
+    fa_bound = _bound_ms(FILTER_ROWS * 4 + 8 + 8 + 4 + 4)
+    # keys and values read; five outputs of max_groups slots and the count
+    sa_bound = _bound_ms(GROUPBY_ROWS * 8 + mg * 24 + 4)
     _say("kernels_main_shapes", filter_agg_rows=FILTER_ROWS,
          filter_agg_ms=fa_ms, filter_agg_plain_ms=fa_plain_ms,
+         filter_agg_bound_ms=fa_bound,
          seg_agg_rows=GROUPBY_ROWS, seg_agg_groups=n_groups,
-         seg_agg_ms=sa_ms, seg_agg_plain_ms=sa_plain_ms)
-    return {"filter_agg": (fa_err, fa_ms, fa_plain_ms),
-            "seg_agg": (sa_err, sa_ms, sa_plain_ms)}
+         seg_agg_max_groups=mg, seg_agg_ms=sa_ms,
+         seg_agg_plain_ms=sa_plain_ms, seg_agg_bound_ms=sa_bound)
+    # neither has one PyTorch call computing the same function
+    return {"filter_agg": (fa_err, fa_ms, fa_plain_ms, fa_bound, None),
+            "seg_agg": (sa_err, sa_ms, sa_plain_ms, sa_bound, None)}
 
 
 # ---------------------------------------------------------------------------
@@ -537,11 +619,17 @@ def _check_join_kernels(args: dict):
     n_rec = int(got[1])
     del got, exp
     torch.cuda.synchronize()
+    n, ns = mask.shape[0], len(streams)
+    # library yardstick: one boolean-mask index of the stacked streams
+    stacked = torch.stack(streams)
+    lib_ms = _cuda_ms(lambda: stacked[:, mask], 10)
+    del stacked
     out["stream_compact"] = (
         err, _cuda_ms(lambda: js.stream_compact_i32(mask, streams, cap), 10),
-        _cuda_ms(lambda: js.stream_compact_plain(mask, streams, cap), 3))
-    shapes = {"stream_compact_elements": mask.shape[0],
-              "stream_compact_streams": len(streams),
+        _cuda_ms(lambda: js.stream_compact_plain(mask, streams, cap), 3),
+        # mask and streams read; cap slots per stream and the count written
+        _bound_ms(n + ns * n * 4 + ns * cap * 4 + 4), lib_ms)
+    shapes = {"stream_compact_elements": n, "stream_compact_streams": ns,
               "stream_compact_cap": cap, "records": n_rec}
     del mask, streams
 
@@ -551,9 +639,21 @@ def _check_join_kernels(args: dict):
     err = _max_abs_err(got, exp)
     del got, exp
     torch.cuda.synchronize()
+    m, ns = starts.shape[0], len(streams)
+    # library yardstick: repeat_interleave of the stacked streams by each
+    # record's run length inside [0, cap)
+    ends = torch.cat([starts[1:], starts.new_full((1,), I32_MAX)])
+    reps = (ends.clamp(max=cap) - starts.clamp(max=cap)).clamp(min=0)
+    total = int(reps.sum())
+    stacked = torch.stack(streams)
+    lib_ms = _cuda_ms(lambda: torch.repeat_interleave(
+        stacked, reps, dim=1, output_size=total), 10)
+    del stacked, ends, reps
     out["expand_fill"] = (
         err, _cuda_ms(lambda: js.expand_fill_i32(starts, streams, cap), 10),
-        _cuda_ms(lambda: js.expand_fill_plain(starts, streams, cap), 3))
+        _cuda_ms(lambda: js.expand_fill_plain(starts, streams, cap), 3),
+        # starts and streams read; offsets and a stream each of cap written
+        _bound_ms(m * 4 + ns * m * 4 + (ns + 1) * cap * 4), lib_ms)
     shapes.update(expand_fill_records=starts.shape[0],
                   expand_fill_streams=len(streams), expand_fill_slots=cap)
     del starts, streams
@@ -562,7 +662,8 @@ def _check_join_kernels(args: dict):
         raise AssertionError(f"kernel != plain at the join's shapes: {out}")
     _say("kernels_join_shapes", **shapes,
          **{f"{k}_{f}": v[i] for k, v in out.items()
-            for i, f in ((1, "ms"), (2, "plain_ms"))})
+            for i, f in ((1, "ms"), (2, "plain_ms"), (3, "bound_ms"),
+                         (4, "library_ms"))})
     return out
 
 
@@ -985,10 +1086,16 @@ def _check_dist_kernels(dev, lk: np.ndarray):
                                     rp.radix_histogram_plain(dest, 0)))
         ms = _cuda_ms(lambda: rp.radix_histogram_i32(dest, 0), 10)
         plain_ms = _cuda_ms(lambda: rp.radix_histogram_plain(dest, 0), 5)
+        # library yardstick: torch.bincount of the shifted keys
+        lib_ms = _cuda_ms(lambda: torch.bincount(
+            ((dest >> 0) & 0xFF).long(), minlength=256), 5)
+        bound = _bound_ms(dest.shape[0] * 4 + 256 * 8)
         out[f"config5_ndev{ndev}_ms"] = ms
         out[f"config5_ndev{ndev}_plain_ms"] = plain_ms
+        out[f"config5_ndev{ndev}_library_ms"] = lib_ms
+        out[f"config5_ndev{ndev}_bound_ms"] = bound
         if main is None:
-            main = (ms, plain_ms)
+            main = (ms, plain_ms, bound, lib_ms)
         del dest
     del lk_d
     torch.cuda.synchronize()
@@ -1127,6 +1234,7 @@ def main() -> int:
     _build.load()
     _say("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds, library=_build.library_path())
+    _say("ptxas", kernels=_build.ptxas_report())
 
     kern = _check_kernels(dev)
     launches = _run_bench(dev, card)
@@ -1141,6 +1249,11 @@ def main() -> int:
     _run_engine_distributed(dev, card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+    loaded = sorted(m for m in sys.modules
+                    if m == "gpu_olap_tpu" or m.startswith("gpu_olap_tpu."))
+    if loaded:
+        raise AssertionError(f"the port loaded the JAX package: {loaded}")
+    _say("standalone", jax_loaded=False, gpu_olap_tpu_loaded=False)
 
     replaces = {"filter_agg": "gpu_olap_tpu/ops/pallas/filter_agg.py:104",
                 "seg_agg": "gpu_olap_tpu/ops/pallas/seg_agg.py:84",
@@ -1150,12 +1263,13 @@ def main() -> int:
     kernels = []
     for name in ("filter_agg", "seg_agg", "stream_compact", "expand_fill",
                  "radix_hist"):
-        err, ms, plain_ms = kern[name]
+        err, ms, plain_ms, bound_ms, library_ms = kern[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"gpu_olap_tpu_torch/csrc/{name}.cu",
                         "replaces": replaces[name],
                         "launches": launches[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": "bytes", "library_ms": library_ms})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,14 @@
-"""gpu_olap_tpu_torch — the SQL engine's device path on PyTorch and CUDA.
+"""gpu_olap_tpu_torch — the SQL engine on PyTorch and CUDA.
 
-The host layers (SQL parser, planner, optimizer, catalog, Arrow interop and
-the NumPy oracle) come from ``gpu_olap_tpu`` and import no JAX; this package
-owns the device side: the torch executor, its operators and the hand-written
-CUDA kernels under ``csrc/``.  It never imports JAX.
+The package stands alone: it keeps its own copies of the host layers (SQL
+parser, optimizer, planner, catalog, Arrow interop, the NumPy oracle) at the
+same relative paths as in ``gpu_olap_tpu``, and owns the device side: the
+torch executor, its operators and the hand-written CUDA kernels under
+``csrc/``.  It imports neither JAX nor anything of ``gpu_olap_tpu``.
 """
 
-from gpu_olap_tpu.config import EngineConfig
-from gpu_olap_tpu.executor.result import QueryResult
-
+from .config import EngineConfig
 from .engine import TorchOlapEngine
+from .executor.result import QueryResult
 
 __all__ = ["EngineConfig", "QueryResult", "TorchOlapEngine"]

@@ -6,223 +6,362 @@
 //
 // Bound on the card: device-memory bytes.  The kernel reads 4 bytes per row
 // per distinct input stream (the filter column plus each value column that
-// is not the filter column itself) and does a handful of integer operations
-// per row, far below the card's compute rate.
+// is not a stream already read) and does a handful of integer operations per
+// row, far below the card's compute rate.
 //
-// Design: one pass, grid-stride, 16-byte vector loads when every stream is
-// 16-byte aligned (scalar loads otherwise and for the ragged tail).  Each
-// thread accumulates in registers: COUNT and SUM in 64-bit integers, MIN and
-// MAX in 32-bit.  A block reduces by warp shuffles and shared memory, then
-// folds its partials into the outputs with one integer atomic each.  Integer
-// atomics are exact and commutative, so the result does not depend on block
-// order.  The TPU kernel's 16-bit split and emulated (hi, lo) sums are gone:
-// the card has native 64-bit integer adds.  A value column whose pointer
-// equals the filter pointer reuses the filter's registers (read once).
-// Rows at or past n_valid are never read.
+// Design:
+//   - One kernel per (operator, number of distinct streams): a template and
+//     a dispatch table.  The row loop tests no runtime operator or column
+//     count, and holds one accumulator set (SUM, MIN, MAX) per distinct
+//     stream only.  Value columns that share a pointer with the filter or
+//     with each other are read once and map to the same accumulators.
+//   - Each thread keeps kUnroll independent 16-byte loads per stream in
+//     flight (scalar loads, 4 x as many, when a stream is not 16-byte
+//     aligned), and the grid is one whole wave: every block resident on the
+//     132 SMs at once, striding over the rows.
+//   - Blocks reduce by warp shuffles and shared memory into one partial
+//     record each; the last block to finish (ordered by a counter) folds the
+//     partials and writes every output, then sets the counter back to zero.
+//     Nothing is pre-filled by the caller and nothing else launches.
+// COUNT and SUM are exact 64-bit integers (the TPU kernel's 16-bit split and
+// emulated (hi, lo) sums are gone).  Rows at or past n_valid are never read.
+// With no matching row, SUM is 0, MIN INT32_MAX and MAX INT32_MIN; a lane not
+// wanted keeps those identities.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxCols = 8;  // filter_agg.py MAX_COLS matches this
+constexpr int kMaxStreams = kMaxCols + 1;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;  // 16-byte loads in flight per stream per thread
+constexpr int kMaxBlocksPerSm = 2048 / kThreads;
+constexpr int kRecWords = 1 + 2 * kMaxStreams;  // count, (sum, min|max) each
+constexpr int kOps = 6;
+constexpr unsigned kFull = 0xffffffffu;
 
-struct FilterAggParams {
-  const int32_t* filt;
-  const int32_t* cols[kMaxCols];
+struct Params {
+  const int32_t* streams[kMaxStreams];  // [0] is the filter
+  int col_stream[kMaxCols];             // value column -> its stream
   int n_cols;
-  int op;  // 0 gt, 1 ge, 2 lt, 3 le, 4 eq, 5 ne
   int32_t thr;
   long long n;  // rows to scan (n_valid)
+  bool vec;     // every stream 16-byte aligned
   unsigned want_sum;  // bit k: column k's SUM is needed
   unsigned want_mm;   // bit k: column k's MIN/MAX are needed
-  unsigned long long* count;
-  unsigned long long* sums;  // int64 bit patterns
+  long long* partials;  // kRecWords per block
+  unsigned* done;       // zero at launch; the last block sets it back to zero
+  long long* count;
+  long long* sums;
   int32_t* mins;
   int32_t* maxs;
 };
 
-__device__ __forceinline__ bool pred(int op, int32_t f, int32_t t) {
-  switch (op) {
-    case 0: return f > t;
-    case 1: return f >= t;
-    case 2: return f < t;
-    case 3: return f <= t;
-    case 4: return f == t;
-    default: return f != t;
-  }
+template <int OP>
+__device__ __forceinline__ bool pred(int32_t f, int32_t t) {
+  if constexpr (OP == 0) return f > t;
+  if constexpr (OP == 1) return f >= t;
+  if constexpr (OP == 2) return f < t;
+  if constexpr (OP == 3) return f <= t;
+  if constexpr (OP == 4) return f == t;
+  return f != t;
 }
 
+template <int NS>
 struct Acc {
-  unsigned long long cnt;
-  long long sum[kMaxCols];
-  int32_t mn[kMaxCols];
-  int32_t mx[kMaxCols];
+  unsigned cnt;  // per thread: at most n / (grid threads) + 16 rows
+  long long sum[NS];
+  int32_t mn[NS];
+  int32_t mx[NS];
 };
 
-__device__ __forceinline__ void take(const FilterAggParams& p, Acc& a,
-                                     int32_t f, const int32_t* v) {
-  if (!pred(p.op, f, p.thr)) return;
-  a.cnt += 1;
+template <int OP, int NS>
+__device__ __forceinline__ void take(Acc<NS>& a, const int32_t (&x)[NS],
+                                     int32_t thr, bool ok) {
+  const bool m = ok && pred<OP>(x[0], thr);
+  a.cnt += m;
 #pragma unroll
-  for (int k = 0; k < kMaxCols; ++k) {
-    if (k < p.n_cols) {
-      a.sum[k] += v[k];
-      a.mn[k] = min(a.mn[k], v[k]);
-      a.mx[k] = max(a.mx[k], v[k]);
-    }
+  for (int s = 0; s < NS; ++s) {
+    a.sum[s] += m ? x[s] : 0;
+    a.mn[s] = min(a.mn[s], m ? x[s] : INT_MAX);
+    a.mx[s] = max(a.mx[s], m ? x[s] : INT_MIN);
   }
 }
 
-__device__ __forceinline__ void row(const FilterAggParams& p, Acc& a,
-                                    long long i) {
-  int32_t f = __ldg(p.filt + i);
-  int32_t v[kMaxCols];
-#pragma unroll
-  for (int k = 0; k < kMaxCols; ++k) {
-    v[k] = 0;
-    if (k < p.n_cols)
-      v[k] = (p.cols[k] == p.filt) ? f : __ldg(p.cols[k] + i);
-  }
-  take(p, a, f, v);
+__device__ __forceinline__ int32_t lane_of(const int4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
-__global__ void __launch_bounds__(kThreads)
-filter_agg_kernel(FilterAggParams p, bool vec) {
-  Acc a;
-  a.cnt = 0;
-#pragma unroll
-  for (int k = 0; k < kMaxCols; ++k) {
-    a.sum[k] = 0;
-    a.mn[k] = INT32_MAX;
-    a.mx[k] = INT32_MIN;
-  }
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long scalar_from = 0;
-  if (vec) {
-    const long long n4 = p.n / 4;
-    const int4* f4 = reinterpret_cast<const int4*>(p.filt);
-    for (long long j = tid; j < n4; j += stride) {
-      int4 fv = __ldg(f4 + j);
-      int4 cv[kMaxCols];
-#pragma unroll
-      for (int k = 0; k < kMaxCols; ++k) {
-        cv[k] = make_int4(0, 0, 0, 0);
-        if (k < p.n_cols)
-          cv[k] = (p.cols[k] == p.filt)
-                      ? fv
-                      : __ldg(reinterpret_cast<const int4*>(p.cols[k]) + j);
-      }
-      int32_t v[kMaxCols];
-#pragma unroll
-      for (int k = 0; k < kMaxCols; ++k) v[k] = cv[k].x;
-      take(p, a, fv.x, v);
-#pragma unroll
-      for (int k = 0; k < kMaxCols; ++k) v[k] = cv[k].y;
-      take(p, a, fv.y, v);
-#pragma unroll
-      for (int k = 0; k < kMaxCols; ++k) v[k] = cv[k].z;
-      take(p, a, fv.z, v);
-#pragma unroll
-      for (int k = 0; k < kMaxCols; ++k) v[k] = cv[k].w;
-      take(p, a, fv.w, v);
-    }
-    scalar_from = n4 * 4;
-  }
-  for (long long i = scalar_from + tid; i < p.n; i += stride) row(p, a, i);
-
-  // warp reduction
+template <int NS>
+__device__ __forceinline__ void warp_reduce(Acc<NS>& a,
+                                            unsigned long long& cnt) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    a.cnt += __shfl_down_sync(0xffffffffu, a.cnt, off);
+    cnt += __shfl_down_sync(kFull, cnt, off);
 #pragma unroll
-    for (int k = 0; k < kMaxCols; ++k) {
-      if (k < p.n_cols) {
-        a.sum[k] += __shfl_down_sync(0xffffffffu, a.sum[k], off);
-        a.mn[k] = min(a.mn[k], __shfl_down_sync(0xffffffffu, a.mn[k], off));
-        a.mx[k] = max(a.mx[k], __shfl_down_sync(0xffffffffu, a.mx[k], off));
+    for (int s = 0; s < NS; ++s) {
+      a.sum[s] += __shfl_down_sync(kFull, a.sum[s], off);
+      a.mn[s] = min(a.mn[s], __shfl_down_sync(kFull, a.mn[s], off));
+      a.mx[s] = max(a.mx[s], __shfl_down_sync(kFull, a.mx[s], off));
+    }
+  }
+}
+
+__device__ __forceinline__ long long pack_mm(int32_t mn, int32_t mx) {
+  return static_cast<long long>(
+      (static_cast<unsigned long long>(static_cast<unsigned>(mx)) << 32) |
+      static_cast<unsigned>(mn));
+}
+
+template <int OP, int NS>
+__global__ void __launch_bounds__(kThreads) filter_agg_kernel(Params p) {
+  Acc<NS> a;
+  a.cnt = 0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    a.sum[s] = 0;
+    a.mn[s] = INT_MAX;
+    a.mx[s] = INT_MIN;
+  }
+  const int t = threadIdx.x;
+  if (p.vec) {
+    const long long n4 = p.n >> 2;
+    const long long chunk = static_cast<long long>(kThreads) * kUnroll;
+    for (long long c0 = blockIdx.x * chunk; c0 < n4;
+         c0 += static_cast<long long>(gridDim.x) * chunk) {
+      int4 x[NS][kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long j = c0 + u * kThreads + t;
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          x[s][u] = j < n4 ? __ldg(reinterpret_cast<const int4*>(p.streams[s]) + j)
+                           : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const bool ok = c0 + u * kThreads + t < n4;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          int32_t r[NS];
+#pragma unroll
+          for (int s = 0; s < NS; ++s) r[s] = lane_of(x[s][u], e);
+          take<OP, NS>(a, r, p.thr, ok);
+        }
+      }
+    }
+    // the last n % 4 rows
+    if (blockIdx.x == 0 && t < (p.n & 3)) {
+      int32_t r[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) r[s] = __ldg(p.streams[s] + n4 * 4 + t);
+      take<OP, NS>(a, r, p.thr, true);
+    }
+  } else {
+    constexpr int kRows = 4 * kUnroll;
+    const long long chunk = static_cast<long long>(kThreads) * kRows;
+    for (long long c0 = blockIdx.x * chunk; c0 < p.n;
+         c0 += static_cast<long long>(gridDim.x) * chunk) {
+      int32_t x[NS][kRows];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const long long i = c0 + u * kThreads + t;
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          x[s][u] = i < p.n ? __ldg(p.streams[s] + i) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        int32_t r[NS];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) r[s] = x[s][u];
+        take<OP, NS>(a, r, p.thr, c0 + u * kThreads + t < p.n);
       }
     }
   }
+
+  // block partial
+  unsigned long long cnt = a.cnt;
+  warp_reduce<NS>(a, cnt);
   __shared__ unsigned long long s_cnt[kWarps];
-  __shared__ long long s_sum[kWarps][kMaxCols];
-  __shared__ int32_t s_mn[kWarps][kMaxCols];
-  __shared__ int32_t s_mx[kWarps][kMaxCols];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  __shared__ long long s_sum[kWarps][NS];
+  __shared__ int32_t s_mn[kWarps][NS];
+  __shared__ int32_t s_mx[kWarps][NS];
+  __shared__ bool s_last;
+  const int lane = t & 31;
+  const int warp = t >> 5;
   if (lane == 0) {
-    s_cnt[warp] = a.cnt;
+    s_cnt[warp] = cnt;
 #pragma unroll
-    for (int k = 0; k < kMaxCols; ++k) {
-      s_sum[warp][k] = a.sum[k];
-      s_mn[warp][k] = a.mn[k];
-      s_mx[warp][k] = a.mx[k];
+    for (int s = 0; s < NS; ++s) {
+      s_sum[warp][s] = a.sum[s];
+      s_mn[warp][s] = a.mn[s];
+      s_mx[warp][s] = a.mx[s];
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long cnt = 0;
-    for (int w = 0; w < kWarps; ++w) cnt += s_cnt[w];
-    if (cnt) atomicAdd(p.count, cnt);
-    for (int k = 0; k < p.n_cols; ++k) {
-      long long s = 0;
-      int32_t mn = INT32_MAX, mx = INT32_MIN;
+  if (t == 0) {
+    long long* rec = p.partials + static_cast<long long>(blockIdx.x) * kRecWords;
+    unsigned long long c = 0;
+    for (int w = 0; w < kWarps; ++w) c += s_cnt[w];
+    __stcg(rec, static_cast<long long>(c));
+    for (int s = 0; s < NS; ++s) {
+      long long sum = 0;
+      int32_t mn = INT_MAX, mx = INT_MIN;
       for (int w = 0; w < kWarps; ++w) {
-        s += s_sum[w][k];
-        mn = min(mn, s_mn[w][k]);
-        mx = max(mx, s_mx[w][k]);
+        sum += s_sum[w][s];
+        mn = min(mn, s_mn[w][s]);
+        mx = max(mx, s_mx[w][s]);
       }
-      if (cnt == 0) continue;
-      if (p.want_sum & (1u << k))
-        atomicAdd(p.sums + k, static_cast<unsigned long long>(s));
-      if (p.want_mm & (1u << k)) {
-        atomicMin(p.mins + k, mn);
-        atomicMax(p.maxs + k, mx);
-      }
+      __stcg(rec + 1 + 2 * s, sum);
+      __stcg(rec + 2 + 2 * s, pack_mm(mn, mx));
+    }
+    __threadfence();
+    s_last = atomicAdd(p.done, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+
+  // the last block folds every block's partial and writes the outputs
+  __threadfence();
+  a.cnt = 0;
+  cnt = 0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    a.sum[s] = 0;
+    a.mn[s] = INT_MAX;
+    a.mx[s] = INT_MIN;
+  }
+  for (int b = t; b < static_cast<int>(gridDim.x); b += kThreads) {
+    const long long* rec = p.partials + static_cast<long long>(b) * kRecWords;
+    cnt += static_cast<unsigned long long>(__ldcg(rec));
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      a.sum[s] += __ldcg(rec + 1 + 2 * s);
+      const unsigned long long mm =
+          static_cast<unsigned long long>(__ldcg(rec + 2 + 2 * s));
+      a.mn[s] = min(a.mn[s], static_cast<int32_t>(static_cast<unsigned>(mm)));
+      a.mx[s] = max(a.mx[s], static_cast<int32_t>(static_cast<unsigned>(mm >> 32)));
     }
   }
+  warp_reduce<NS>(a, cnt);
+  __syncthreads();
+  if (lane == 0) {
+    s_cnt[warp] = cnt;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      s_sum[warp][s] = a.sum[s];
+      s_mn[warp][s] = a.mn[s];
+      s_mx[warp][s] = a.mx[s];
+    }
+  }
+  __syncthreads();
+  if (t == 0) {
+    unsigned long long c = 0;
+    for (int w = 0; w < kWarps; ++w) c += s_cnt[w];
+    *p.count = static_cast<long long>(c);
+    for (int k = 0; k < p.n_cols; ++k) {
+      const int s = p.col_stream[k];
+      long long sum = 0;
+      int32_t mn = INT_MAX, mx = INT_MIN;
+      for (int w = 0; w < kWarps; ++w) {
+        sum += s_sum[w][s];
+        mn = min(mn, s_mn[w][s]);
+        mx = max(mx, s_mx[w][s]);
+      }
+      const bool ws = (p.want_sum >> k) & 1u;
+      const bool wm = (p.want_mm >> k) & 1u;
+      p.sums[k] = ws ? sum : 0;
+      p.mins[k] = wm ? mn : INT_MAX;
+      p.maxs[k] = wm ? mx : INT_MIN;
+    }
+    *p.done = 0;  // ready for the next launch on this stream
+  }
+}
+
+using Kernel = void (*)(Params);
+
+#define OLAP_FA_ROW(OP)                                                      \
+  {filter_agg_kernel<OP, 1>, filter_agg_kernel<OP, 2>,                      \
+   filter_agg_kernel<OP, 3>, filter_agg_kernel<OP, 4>,                      \
+   filter_agg_kernel<OP, 5>, filter_agg_kernel<OP, 6>,                      \
+   filter_agg_kernel<OP, 7>, filter_agg_kernel<OP, 8>,                      \
+   filter_agg_kernel<OP, 9>}
+
+const Kernel kKernels[kOps][kMaxStreams] = {
+    OLAP_FA_ROW(0), OLAP_FA_ROW(1), OLAP_FA_ROW(2),
+    OLAP_FA_ROW(3), OLAP_FA_ROW(4), OLAP_FA_ROW(5)};
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
 }
 
 }  // namespace
 
-// Outputs must be initialised by the caller: count and sums to 0, mins to
-// INT32_MAX, maxs to INT32_MIN.  Returns cudaGetLastError() after the launch.
+// bytes of the per-block partial records one launch may use
+extern "C" long long olap_filter_agg_partials_bytes() {
+  return static_cast<long long>(sm_count()) * kMaxBlocksPerSm * kRecWords *
+         static_cast<long long>(sizeof(long long));
+}
+
+// partials: olap_filter_agg_partials_bytes() bytes, any content.  done: one
+// unsigned int that is zero, owned by this stream (the kernel leaves it
+// zero).  Outputs need no initialisation: count (1), sums, mins and maxs
+// (n_cols each) are all written.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int olap_filter_agg_i32(const void* filt, const void* const* cols,
                                    int n_cols, int op, int thr, long long n,
                                    unsigned want_sum, unsigned want_mm,
-                                   void* count, void* sums, void* mins,
-                                   void* maxs, void* stream) {
-  if (n_cols < 0 || n_cols > kMaxCols || op < 0 || op > 5 || n < 0)
+                                   void* partials, void* done, void* count,
+                                   void* sums, void* mins, void* maxs,
+                                   void* stream) {
+  if (n_cols < 0 || n_cols > kMaxCols || op < 0 || op >= kOps || n <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  FilterAggParams p{};
-  p.filt = static_cast<const int32_t*>(filt);
-  bool vec = (reinterpret_cast<uintptr_t>(filt) & 15) == 0;
+  Params p{};
+  p.streams[0] = static_cast<const int32_t*>(filt);
+  int ns = 1;
   for (int k = 0; k < n_cols; ++k) {
-    p.cols[k] = static_cast<const int32_t*>(cols[k]);
-    vec = vec && (reinterpret_cast<uintptr_t>(cols[k]) & 15) == 0;
+    const int32_t* c = static_cast<const int32_t*>(cols[k]);
+    int s = 0;
+    while (s < ns && p.streams[s] != c) ++s;
+    if (s == ns) p.streams[ns++] = c;
+    p.col_stream[k] = s;
   }
+  p.vec = true;
+  for (int s = 0; s < ns; ++s)
+    p.vec = p.vec && (reinterpret_cast<uintptr_t>(p.streams[s]) & 15) == 0;
   p.n_cols = n_cols;
-  p.op = op;
   p.thr = thr;
   p.n = n;
   p.want_sum = want_sum;
   p.want_mm = want_mm;
-  p.count = static_cast<unsigned long long*>(count);
-  p.sums = static_cast<unsigned long long*>(sums);
+  p.partials = static_cast<long long*>(partials);
+  p.done = static_cast<unsigned*>(done);
+  p.count = static_cast<long long*>(count);
+  p.sums = static_cast<long long*>(sums);
   p.mins = static_cast<int32_t*>(mins);
   p.maxs = static_cast<int32_t*>(maxs);
-  if (n == 0) return static_cast<int>(cudaGetLastError());
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long want_blocks = (n / 4 + kThreads - 1) / kThreads;
-  long long cap = static_cast<long long>(sms > 0 ? sms : 1) * 8;
-  int blocks = static_cast<int>(want_blocks < 1 ? 1
-                                : (want_blocks < cap ? want_blocks : cap));
-  filter_agg_kernel<<<blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(p, vec);
+
+  const Kernel kernel = kKernels[op][ns - 1];
+  static int occupancy[kOps][kMaxStreams];  // blocks per SM, 0 = not asked
+  int& occ = occupancy[op][ns - 1];
+  if (occ == 0) {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, reinterpret_cast<const void*>(kernel), kThreads, 0);
+    occ = b < 1 ? 1 : (b > kMaxBlocksPerSm ? kMaxBlocksPerSm : b);
+  }
+  const long long rows_per_block = static_cast<long long>(kThreads) * kUnroll * 4;
+  const long long want = (n + rows_per_block - 1) / rows_per_block;
+  const long long wave = static_cast<long long>(sm_count()) * occ;
+  const int blocks = static_cast<int>(want < wave ? want : wave);
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

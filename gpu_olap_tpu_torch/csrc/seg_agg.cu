@@ -8,215 +8,444 @@
 // each run of equal keys, so a group's MIN is its first value and its MAX its
 // last.  Per group, in key order: key, count (int32), sum (int64), min, max,
 // plus the exact number of groups.  Groups at or past max_groups are not
-// written, but they are still counted.
+// written, but they are still counted.  Entries at or past the group count
+// are zero.
 //
-// Bound on the card: device-memory bytes.  Every pass reads 8 bytes per row
-// (key and value); the outputs are 24 bytes per group.
+// Bound on the card: device-memory bytes.  8 bytes read per row (key and
+// value) and 24 bytes written per output slot (max_groups of them).
 //
-// Design: blocks run in no order, so the TPU kernel's sequential carry is
-// replaced by three launches.
-//   1. seg_count_kernel: per tile of kTile rows, the number of run starts.
-//   2. seg_scan_kernel: one block scans the tile counts into each tile's
-//      first group id and writes the exact group count.
-//   3. seg_agg_kernel: each thread owns kItems consecutive rows.  It writes
-//      key and MIN at each run start and MAX at each run end, and adds the
-//      run's positions into its count (-start at the start, end + 1 at the
-//      end).  Sums are a block-level segmented reduction: a segmented scan
-//      over the threads carries the open run's partial sum from thread to
-//      thread, and each (block, group) piece is added to the group with one
-//      64-bit atomic.  Integer atomics are exact and commutative, so the
-//      result does not depend on block order.
-// The 16-bit split, the emulated (hi, lo) sums and the butterfly routing of
-// the TPU kernel are gone; no padding to a block multiple is needed.
+// Design: one pass that reads every key and value once.
+//   - Tiles of kTile = 8192 rows.  A block copies its tile into shared
+//     memory with cp.async (each warp 512 contiguous bytes per copy, so
+//     device memory sees fully coalesced reads and no register holds data
+//     in flight), then each thread owns kItems = 16 consecutive rows.  An
+//     XOR swizzle of the 16-byte chunks makes those reads conflict-free.
+//   - Tile ids come from a global atomic counter, not from blockIdx, so
+//     tiles start in id order and a tile's predecessors are always running
+//     or done: the look-back always makes progress.
+//   - A group's id is the number of run starts before it, and the open run
+//     carries its partial sum and its start row.  All three come from one
+//     segmented scan with (c1,s1,p1) + (c2,s2,p2) = (c1+c2, c2 ? s2 : s1+s2,
+//     max(p1,p2)): within a thread sequentially, across a warp by shuffles,
+//     across the block's warps by one warp's scan, across tiles by a
+//     single-pass scan with decoupled look-back over per-tile descriptors:
+//     one 16-byte word holding the status and the tile's aggregate, then
+//     its inclusive prefix, so a look-back round is one L2 round trip.
+//   - The thread that sees a run's start writes the group's key and MIN; the
+//     thread that sees its end writes count (end - start + 1), SUM and MAX.
+//     All plain stores: no atomics on outputs, no pre-zeroed outputs.  The
+//     thread that holds the last row writes the group count, and a second
+//     small launch zeroes the output tail [n_groups, max_groups) only.
+// What is left between this and the bound: each tile's steps (counter,
+// copy, scan, look-back, writes) run one after another, and the outputs
+// are 4- and 8-byte stores scattered over five arrays.
+// The TPU kernel's 16-bit split, emulated (hi, lo) sums and butterfly
+// routing are gone: the card has native 64-bit adds.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 16;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kItems = 16;  // consecutive rows per thread: one bit each
+constexpr int kChunks = kItems / 4;  // 16-byte chunks per thread
 constexpr int kTile = kThreads * kItems;
-constexpr int kScanThreads = 1024;
+constexpr int kTileBytes = 2 * kTile * 4;  // keys and values
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTailThreads = 256;
+constexpr int kTailMaxBlocks = 1024;
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ bool run_start(const int32_t* keys, long long i) {
-  return i == 0 || __ldg(keys + i) != __ldg(keys + i - 1);
-}
-
-// Block-wide exclusive sum of one int per thread; also returns the total.
-template <int kN>
-__device__ __forceinline__ int block_exclusive_sum(int x, int* total,
-                                                   int* s_buf) {
-  const int t = threadIdx.x;
-  s_buf[t] = x;
-  __syncthreads();
-  for (int off = 1; off < kN; off <<= 1) {
-    int y = t >= off ? s_buf[t - off] : 0;
-    __syncthreads();
-    s_buf[t] += y;
-    __syncthreads();
-  }
-  int incl = s_buf[t];
-  *total = s_buf[kN - 1];
-  __syncthreads();
-  return incl - x;
-}
-
-__global__ void __launch_bounds__(kThreads)
-seg_count_kernel(const int32_t* keys, long long n, int* tile_counts) {
-  __shared__ int s_buf[kThreads];
-  const long long r0 = (long long)blockIdx.x * kTile + threadIdx.x * kItems;
-  int c = 0;
-  for (int j = 0; j < kItems; ++j) {
-    long long i = r0 + j;
-    if (i >= n) break;
-    c += run_start(keys, i);
-  }
-  int total;
-  block_exclusive_sum<kThreads>(c, &total, s_buf);
-  if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(kScanThreads)
-seg_scan_kernel(const int* tile_counts, int n_tiles, int* tile_base,
-                int* n_groups) {
-  __shared__ int s_buf[kScanThreads];
-  int carry = 0;
-  for (int b0 = 0; b0 < n_tiles; b0 += kScanThreads) {
-    int b = b0 + threadIdx.x;
-    int x = b < n_tiles ? tile_counts[b] : 0;
-    int total;
-    int excl = block_exclusive_sum<kScanThreads>(x, &total, s_buf);
-    if (b < n_tiles) tile_base[b] = carry + excl;
-    carry += total;
-  }
-  if (threadIdx.x == 0) *n_groups = carry;
-}
-
-struct SegOut {
-  int32_t* key;
-  int32_t* cnt;
-  unsigned long long* sum;  // int64 bit patterns
-  int32_t* mn;
-  int32_t* mx;
+// The segmented-scan state: c run starts seen, s the sum since the last
+// start, p the row of the last start (-1: none yet).
+struct Carry {
+  long long s;
+  int c;
+  int p;
 };
 
-__device__ __forceinline__ void add_sum(const SegOut& o, int g, int max_groups,
-                                        long long s) {
-  if (g >= 0 && g < max_groups && s != 0)
-    atomicAdd(o.sum + g, static_cast<unsigned long long>(s));
+__device__ __forceinline__ Carry identity() { return {0, 0, -1}; }
+
+// a, then b
+__device__ __forceinline__ Carry combine(const Carry& a, const Carry& b) {
+  return {b.c ? b.s : a.s + b.s, a.c + b.c, max(a.p, b.p)};
 }
 
-__global__ void __launch_bounds__(kThreads)
-seg_agg_kernel(const int32_t* keys, const int32_t* vals, long long n,
-               int max_groups, const int* tile_base, SegOut o) {
-  __shared__ int s_buf[kThreads];
-  __shared__ int s_reset[kThreads];
-  __shared__ long long s_x[kThreads];
+__device__ __forceinline__ Carry shfl_up(const Carry& x, int d) {
+  return {__shfl_up_sync(kFull, x.s, d), __shfl_up_sync(kFull, x.c, d),
+          __shfl_up_sync(kFull, x.p, d)};
+}
+
+__device__ __forceinline__ Carry shfl_down(const Carry& x, int d) {
+  return {__shfl_down_sync(kFull, x.s, d), __shfl_down_sync(kFull, x.c, d),
+          __shfl_down_sync(kFull, x.p, d)};
+}
+
+__device__ __forceinline__ Carry shfl_idx(const Carry& x, int src) {
+  return {__shfl_sync(kFull, x.s, src), __shfl_sync(kFull, x.c, src),
+          __shfl_sync(kFull, x.p, src)};
+}
+
+// A tile's descriptor is one aligned 16-byte word, stored and loaded with
+// one vector access each (a single transaction, as in CUB's tile state for
+// 8-byte values), so its status and its value never tear apart and no fence
+// orders them: .x is the sum s, .y packs c (bits 0-30), p + 1 (bits 32-62)
+// and the status: bit 31 set once the tile's own aggregate is there, bit 63
+// once its inclusive prefix replaced it.  All zero (invalid) at launch.
+// c < 2^31 and p + 1 < 2^31 because n < 2^31 - 1.
+constexpr unsigned long long kHasValue = 1ull << 31;
+constexpr unsigned long long kIsPrefix = 1ull << 63;
+
+__device__ __forceinline__ longlong2 encode(const Carry& x,
+                                            unsigned long long status) {
+  const unsigned long long w =
+      (static_cast<unsigned long long>(static_cast<unsigned>(x.p + 1)) << 32) |
+      static_cast<unsigned>(x.c) | status;
+  return make_longlong2(x.s, static_cast<long long>(w));
+}
+
+__device__ __forceinline__ Carry decode(const longlong2& d) {
+  const unsigned long long w = static_cast<unsigned long long>(d.y);
+  return {d.x, static_cast<int>(w & 0x7fffffffu),
+          static_cast<int>((w >> 32) & 0x7fffffffu) - 1};
+}
+
+// relaxed, GPU-scope 16-byte accesses: coherent in L2, never cached in L1,
+// never merged or hoisted by the compiler
+__device__ __forceinline__ longlong2 load_desc(const longlong2* d) {
+  longlong2 v;
+  asm volatile("ld.relaxed.gpu.global.v2.b64 {%0, %1}, [%2];"
+               : "=l"(v.x), "=l"(v.y)
+               : "l"(d)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_desc(longlong2* d, const longlong2& v) {
+  asm volatile("st.relaxed.gpu.global.v2.b64 [%0], {%1, %2};" ::"l"(d),
+               "l"(v.x), "l"(v.y)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long status_of(const longlong2& d) {
+  return static_cast<unsigned long long>(d.y) & (kHasValue | kIsPrefix);
+}
+
+struct SegArgs {
+  const int32_t* keys;
+  const int32_t* vals;
+  int n;
+  int max_groups;
+  bool aligned;  // keys and vals 16-byte aligned
+  longlong2* desc;  // one per tile, zero at launch
+  int* tile_counter;
+  int32_t* okey;
+  int32_t* ocnt;
+  long long* osum;
+  int32_t* omin;
+  int32_t* omax;
+  int32_t* n_groups;
+};
+
+// The tile's exclusive prefix by decoupled look-back; run by warp 0.  Each
+// round reads the 32 predecessors before `look` at once, one per lane, and
+// stops at the nearest inclusive prefix among them.
+__device__ Carry look_back(const SegArgs& a, int tile, const Carry& tile_agg,
+                           int lane) {
+  if (tile == 0) {
+    if (lane == 0) store_desc(a.desc, encode(tile_agg, kHasValue | kIsPrefix));
+    return identity();
+  }
+  if (lane == 0) store_desc(a.desc + tile, encode(tile_agg, kHasValue));
+  Carry prefix = identity();
+  for (int look = tile - 1;; look -= 32) {
+    const int idx = look - lane;
+    longlong2 d = encode(identity(), kHasValue | kIsPrefix);  // before tile 0
+    if (idx >= 0) {
+      do {
+        d = load_desc(a.desc + idx);
+      } while (status_of(d) == 0);
+    }
+    // lanes hold tiles look, look - 1, ...: keep those up to the nearest
+    // inclusive prefix and fold them, earliest first, into lane 0
+    const unsigned pm = __ballot_sync(kFull, (status_of(d) & kIsPrefix) != 0);
+    const int stop = pm ? __ffs(pm) - 1 : 31;
+    Carry x = lane > stop ? identity() : decode(d);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      Carry o = shfl_down(x, off);
+      if (lane + off < 32) x = combine(o, x);
+    }
+    prefix = combine(shfl_idx(x, 0), prefix);
+    if (pm) break;
+  }
+  if (lane == 0)
+    store_desc(a.desc + tile,
+               encode(combine(prefix, tile_agg), kHasValue | kIsPrefix));
+  return prefix;
+}
+
+// asynchronous global -> shared copies (cp.async), zero-filling past
+// src_bytes
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::
+                   : "memory");
+}
+
+// Position of 16-byte chunk c of the tile in shared memory.  Thread t reads
+// its chunks kChunks * t + j; the swizzle spreads each group of 8 lanes
+// over the 8 distinct 16-byte bank groups, so those reads are conflict-free.
+__device__ __forceinline__ int swz(int c) { return c ^ ((c >> 3) & 7); }
+
+__global__ void __launch_bounds__(kThreads) seg_agg_kernel(SegArgs a) {
+  extern __shared__ int4 s_data[];     // the tile: keys, then values
+  __shared__ int s_tile;
+  __shared__ Carry s_warp[kWarps];     // each warp's aggregate, then its
+                                       // exclusive prefix in the tile
+  __shared__ Carry s_prefix;
   const int t = threadIdx.x;
-  const long long r0 = (long long)blockIdx.x * kTile + t * kItems;
-
-  // pass 1: this thread's run starts and the sum of its trailing open piece
-  int starts = 0;
-  long long run = 0;
-  for (int j = 0; j < kItems; ++j) {
-    long long i = r0 + j;
-    if (i >= n) break;
-    if (run_start(keys, i)) {
-      ++starts;
-      run = 0;
-    }
-    run += __ldg(vals + i);
-  }
-
-  int block_starts;
-  const int excl_starts = block_exclusive_sum<kThreads>(starts, &block_starts,
-                                                         s_buf);
-
-  // inclusive segmented scan over threads of (reset, x): a thread holding a
-  // run start resets the carried sum to its own trailing piece
-  s_reset[t] = starts > 0;
-  s_x[t] = run;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  int4* sk = s_data;
+  int4* sv = s_data + kTile / 4;
+  if (t == 0) s_tile = atomicAdd(a.tile_counter, 1);
   __syncthreads();
-  for (int off = 1; off < kThreads; off <<= 1) {
-    int r_prev = 0;
-    long long x_prev = 0;
-    if (t >= off) {
-      r_prev = s_reset[t - off];
-      x_prev = s_x[t - off];
-    }
-    __syncthreads();
-    if (t >= off) {
-      if (!s_reset[t]) s_x[t] += x_prev;
-      s_reset[t] |= r_prev;
-    }
-    __syncthreads();
-  }
-  // partial sum of the run still open where this thread begins, counted from
-  // the start of this block (earlier blocks add their own pieces)
-  long long carry = t > 0 ? s_x[t - 1] : 0;
+  const int tile = s_tile;
+  const long long base = static_cast<long long>(tile) * kTile;
 
-  // pass 2: write the outputs
-  int g = tile_base[blockIdx.x] + excl_starts - 1;  // group open at r0
-  run = carry;
-  for (int j = 0; j < kItems; ++j) {
-    long long i = r0 + j;
-    if (i >= n) break;
-    const int32_t k = __ldg(keys + i);
-    const int32_t v = __ldg(vals + i);
-    if (i == 0 || k != __ldg(keys + i - 1)) {
-      add_sum(o, g, max_groups, run);  // close the previous group's piece
-      run = 0;
-      ++g;
-      if (g < max_groups) {
-        o.key[g] = k;
-        o.mn[g] = v;
-        atomicAdd(o.cnt + g, static_cast<int>(-i));
-      }
-    }
-    run += v;
-    if (i == n - 1 || __ldg(keys + i + 1) != k) {
-      if (g < max_groups) {
-        o.mx[g] = v;
-        atomicAdd(o.cnt + g, static_cast<int>(i + 1));
+  // the whole tile into shared memory: in round r a warp copies 512
+  // contiguous bytes of keys and of values; rows past n read as 0
+#pragma unroll
+  for (int r = 0; r < kChunks; ++r) {
+    const int c = r * kThreads + t;
+    const long long row = base + 4 * c;
+    const int nv = static_cast<int>(max(0LL, min(4LL, a.n - row)));
+    const long long src = nv ? row : 0;  // a valid address even when empty
+    if (a.aligned) {
+      cp_async16(sk + swz(c), a.keys + src, nv * 4);
+      cp_async16(sv + swz(c), a.vals + src, nv * 4);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long long se = e < nv ? row + e : 0;
+        cp_async4(reinterpret_cast<int32_t*>(sk + swz(c)) + e, a.keys + se,
+                  e < nv ? 4 : 0);
+        cp_async4(reinterpret_cast<int32_t*>(sv + swz(c)) + e, a.vals + se,
+                  e < nv ? 4 : 0);
       }
     }
   }
-  // the last thread closes the piece still open at the block's end
-  if (t == kThreads - 1) add_sum(o, g, max_groups, run);
+  const long long r0 = base + static_cast<long long>(t) * kItems;
+  const int nv = static_cast<int>(
+      max(0LL, min(static_cast<long long>(kItems), a.n - r0)));
+  // keys just before and just after this thread's rows
+  int32_t prev = 0, next = 0;
+  if (t == 0 && base > 0) prev = __ldg(a.keys + base - 1);
+  if (t == kThreads - 1 && r0 + kItems < a.n) next = __ldg(a.keys + r0 + kItems);
+  cp_async_wait_all();
+  __syncthreads();
+  if (t > 0) prev = sk[swz(kChunks * t - 1)].w;
+  if (t < kThreads - 1) next = sk[swz(kChunks * (t + 1))].x;
+
+  // this thread's kItems consecutive rows: run starts (bit i), and the
+  // thread's aggregate
+  unsigned starts = 0;
+  Carry agg = identity();
+  int32_t last = prev;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int4 x = sk[swz(kChunks * t + j)];
+    const int4 y = sv[swz(kChunks * t + j)];
+    const int32_t k[4] = {x.x, x.y, x.z, x.w};
+    const int32_t v[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      if (i < nv) {
+        if ((r0 + i == 0) | (k[e] != last)) {
+          starts |= 1u << i;
+          agg.c += 1;
+          agg.s = v[e];
+          agg.p = static_cast<int>(r0 + i);
+        } else {
+          agg.s += v[e];
+        }
+        last = k[e];
+      }
+    }
+  }
+  // a run ends where the next row starts one, and at the last row
+  unsigned ends = starts >> 1;
+  if (nv == kItems) {
+    if (r0 + kItems == a.n || next != last) ends |= 1u << (kItems - 1);
+  } else if (nv > 0) {
+    ends |= 1u << (nv - 1);  // the last row of the input
+  }
+
+  // exclusive prefix of the thread in its warp, of the warp in the tile
+  Carry inc = agg;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    Carry o = shfl_up(inc, d);
+    if (lane >= d) inc = combine(o, inc);
+  }
+  Carry excl = shfl_up(inc, 1);
+  if (lane == 0) excl = identity();
+  if (lane == 31) s_warp[warp] = inc;
+  __syncthreads();
+
+  // warp 0: the warps' aggregates scanned, then the tile's prefix by
+  // look-back
+  if (warp == 0) {
+    Carry w = lane < kWarps ? s_warp[lane] : identity();
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      Carry o = shfl_up(w, d);
+      if (lane >= d) w = combine(o, w);
+    }
+    Carry w_excl = shfl_up(w, 1);
+    if (lane < kWarps) s_warp[lane] = lane == 0 ? identity() : w_excl;
+    const Carry prefix = look_back(a, tile, shfl_idx(w, kWarps - 1), lane);
+    if (lane == 0) s_prefix = prefix;
+  }
+  __syncthreads();
+
+  // write each group's fields where its run starts and where it ends
+  Carry run = combine(combine(s_prefix, s_warp[warp]), excl);
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int4 x = sk[swz(kChunks * t + j)];
+    const int4 y = sv[swz(kChunks * t + j)];
+    const int32_t k[4] = {x.x, x.y, x.z, x.w};
+    const int32_t v[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      if (i < nv) {
+        const bool st = (starts >> i) & 1u;
+        const bool en = (ends >> i) & 1u;
+        if (st) {
+          run.c += 1;
+          run.s = v[e];
+          run.p = static_cast<int>(r0 + i);
+        } else {
+          run.s += v[e];
+        }
+        const int g = run.c - 1;
+        if (g < a.max_groups) {
+          if (st) {
+            a.okey[g] = k[e];
+            a.omin[g] = v[e];
+          }
+          if (en) {
+            a.ocnt[g] = static_cast<int32_t>(r0 + i - run.p + 1);
+            a.osum[g] = run.s;
+            a.omax[g] = v[e];
+          }
+        }
+      }
+    }
+  }
+  if (nv > 0 && nv < kItems) *a.n_groups = run.c;  // the input's last row
+  if (nv == kItems && r0 + kItems == a.n) *a.n_groups = run.c;
+}
+
+// zeroes the output slots [n_groups, max_groups)
+__global__ void __launch_bounds__(kTailThreads)
+seg_tail_kernel(const int32_t* n_groups, int max_groups, int32_t* okey,
+                int32_t* ocnt, long long* osum, int32_t* omin, int32_t* omax) {
+  const int ng = *n_groups;
+  for (long long g = ng + static_cast<long long>(blockIdx.x) * kTailThreads +
+                     threadIdx.x;
+       g < max_groups; g += static_cast<long long>(gridDim.x) * kTailThreads) {
+    okey[g] = 0;
+    ocnt[g] = 0;
+    osum[g] = 0;
+    omin[g] = 0;
+    omax[g] = 0;
+  }
+}
+
+long long n_tiles_of(long long n) { return (n + kTile - 1) / kTile; }
+
+// scratch layout: desc[n_tiles], then the tile counter
+long long scratch_bytes(long long n_tiles) {
+  return (n_tiles + 1) * static_cast<long long>(sizeof(longlong2));
 }
 
 }  // namespace
 
-extern "C" int olap_seg_agg_tile_rows() { return kTile; }
+extern "C" long long olap_seg_agg_scratch_bytes(long long n) {
+  return scratch_bytes(n_tiles_of(n));
+}
 
-// tile_counts and tile_base hold ceil(n / kTile) ints of scratch; cnt and sum
-// must be zeroed by the caller.  Returns cudaGetLastError() after the last
-// launch.
+// scratch: olap_seg_agg_scratch_bytes(n) bytes, 16-byte aligned, any
+// content.  Outputs need no initialisation.  Returns cudaGetLastError()
+// after the last launch.
 extern "C" int olap_seg_agg_i32(const void* keys, const void* vals,
-                                long long n, int max_groups, void* tile_counts,
-                                void* tile_base, void* okey, void* ocnt,
-                                void* osum, void* omin, void* omax,
-                                void* n_groups, void* stream) {
-  if (n <= 0 || n >= (1LL << 31) - 1 || max_groups < 0)
+                                long long n, int max_groups, void* scratch,
+                                void* okey, void* ocnt, void* osum, void* omin,
+                                void* omax, void* n_groups, void* stream) {
+  if (n <= 0 || n >= (1LL << 31) - 1 || max_groups < 0 ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n_tiles = (n + kTile - 1) / kTile;
-  const int32_t* k = static_cast<const int32_t*>(keys);
-  const int32_t* v = static_cast<const int32_t*>(vals);
-  seg_count_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
-      k, n, static_cast<int*>(tile_counts));
-  int err = static_cast<int>(cudaGetLastError());
+  const long long nt = n_tiles_of(n);
+  int err = static_cast<int>(cudaMemsetAsync(
+      scratch, 0, static_cast<size_t>(scratch_bytes(nt)), s));
   if (err) return err;
-  seg_scan_kernel<<<1, kScanThreads, 0, s>>>(
-      static_cast<const int*>(tile_counts), static_cast<int>(n_tiles),
-      static_cast<int*>(tile_base), static_cast<int*>(n_groups));
+  SegArgs a;
+  a.keys = static_cast<const int32_t*>(keys);
+  a.vals = static_cast<const int32_t*>(vals);
+  a.n = static_cast<int>(n);
+  a.max_groups = max_groups;
+  a.aligned = ((reinterpret_cast<uintptr_t>(keys) |
+                reinterpret_cast<uintptr_t>(vals)) & 15) == 0;
+  a.desc = static_cast<longlong2*>(scratch);
+  a.tile_counter = reinterpret_cast<int*>(a.desc + nt);
+  a.okey = static_cast<int32_t*>(okey);
+  a.ocnt = static_cast<int32_t*>(ocnt);
+  a.osum = static_cast<long long*>(osum);
+  a.omin = static_cast<int32_t*>(omin);
+  a.omax = static_cast<int32_t*>(omax);
+  a.n_groups = static_cast<int32_t*>(n_groups);
+  // the tile needs more than 48 KB of shared memory: allowed once per device
+  static bool attr_set[kMaxDevices];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!attr_set[dev]) {
+    err = static_cast<int>(cudaFuncSetAttribute(
+        seg_agg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kTileBytes));
+    if (err) return err;
+    attr_set[dev] = true;
+  }
+  seg_agg_kernel<<<static_cast<unsigned>(nt), kThreads, kTileBytes, s>>>(a);
   err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  SegOut o{static_cast<int32_t*>(okey), static_cast<int32_t*>(ocnt),
-           static_cast<unsigned long long*>(osum),
-           static_cast<int32_t*>(omin), static_cast<int32_t*>(omax)};
-  seg_agg_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
-      k, v, n, max_groups, static_cast<const int*>(tile_base), o);
+  if (err || max_groups == 0) return err;
+  long long tail_blocks = (max_groups + kTailThreads - 1) / kTailThreads;
+  if (tail_blocks > kTailMaxBlocks) tail_blocks = kTailMaxBlocks;
+  seg_tail_kernel<<<static_cast<unsigned>(tail_blocks), kTailThreads, 0, s>>>(
+      a.n_groups, max_groups, a.okey, a.ocnt, a.osum, a.omin, a.omax);
   return static_cast<int>(cudaGetLastError());
 }

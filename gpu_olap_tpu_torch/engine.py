@@ -1,8 +1,11 @@
 """Engine entry point of the PyTorch port.
 
-``TorchOlapEngine`` keeps ``OlapEngine``'s surface (``register``,
-``load_table``, ``query``, ``query_pandas``, ``explain``, the result cache
-and the device lock) and replaces its execution with the torch executors.
+``TorchOlapEngine`` owns the catalog and the config and drives parse ->
+optimize -> physical plan -> execute, with the surface of
+``gpu_olap_tpu.engine.OlapEngine`` (``register``, ``load_table``,
+``plan_query``, ``explain``, ``query``, ``query_async``/``aquery``/
+``shutdown``, ``query_pandas``, ``query_polars``, the result cache and the
+locks) and the torch executors in place of the JAX ones.
 With ``config.mesh_shape[0] > 1`` a distributable plan runs on the
 ``DistributedExecutor`` over a mesh of explicit devices
 (``metrics["backend"] == "torch-distributed"``); any other plan runs on the
@@ -15,24 +18,29 @@ oracle and say so in ``metrics["backend"] == "cpu-fallback"``.
 
 from __future__ import annotations
 
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional, Sequence
 
-from gpu_olap_tpu.config import EngineConfig
-from gpu_olap_tpu.engine import OlapEngine
-from gpu_olap_tpu.executor.cpu import CpuExecutor
-from gpu_olap_tpu.executor.result import QueryResult
-from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS, Timer
-from gpu_olap_tpu.utils.tracing import get_logger
-
+from .catalog import Catalog
+from .config import EngineConfig
+from .executor.cpu import CpuExecutor
 from .executor.device import DeviceExecutor, DeviceUnsupported, _Interpreter
+from .executor.result import QueryResult
+from .interop.columnar import ColumnBatch
 from .parallel.dist_executor import DistributedExecutor, NotDistributable
 from .parallel.mesh import make_mesh, visible_devices
+from .plan.optimizer import optimize
+from .plan.physical import TpuTableScan, create_physical_plan
+from .sql.parser import parse_sql
+from .utils.metrics import GLOBAL_METRICS, Timer
 from .utils.torchenv import resolve_device
+from .utils.tracing import get_logger
 
 logger = get_logger(__name__)
 
 
-class TorchOlapEngine(OlapEngine):
+class TorchOlapEngine:
     """SQL engine whose device backend is PyTorch on ``device`` ("cuda",
     "cuda:N" or "cpu").  ``"cuda"`` without a GPU raises.
 
@@ -43,7 +51,20 @@ class TorchOlapEngine(OlapEngine):
 
     def __init__(self, config: Optional[EngineConfig] = None,
                  device="cuda", mesh_devices: Optional[Sequence] = None):
-        super().__init__(config)
+        self.config = config or EngineConfig()
+        self.catalog = Catalog(self.config.table_cache_threshold_rows)
+        self.metrics = GLOBAL_METRICS
+        # result cache keyed by (sql, referenced table versions)
+        self._result_cache: dict = {}
+        self._result_cache_max = 128
+        # planning runs concurrently; device work serializes on _device_lock;
+        # the CPU oracle runs fully concurrent
+        self._cache_lock = threading.Lock()
+        self._exec_init_lock = threading.Lock()
+        self._device_lock = threading.Lock()
+        self._df_lock = threading.Lock()
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._device_executor = None
         self.device = resolve_device(device)
         self.mesh = None
         shape = self.config.mesh_shape
@@ -55,6 +76,47 @@ class TorchOlapEngine(OlapEngine):
                              "with n > 1")
         self._dist_executor = None
 
+    # -- tables --------------------------------------------------------------
+    def load_table(self, name: str, path: str) -> None:
+        self.catalog.load_table(name, path)
+
+    def register(self, name: str, data) -> None:
+        """Register in-memory data: pandas DataFrame, Arrow Table, dict of
+        arrays or a ``ColumnBatch``."""
+        if isinstance(data, ColumnBatch):
+            self.catalog.register_batch(name, data)
+        elif isinstance(data, dict):
+            self.catalog.register_batch(name, ColumnBatch.from_dict(data))
+        elif type(data).__module__.startswith("pandas"):
+            self.catalog.register_pandas(name, data)
+        elif type(data).__module__.startswith("pyarrow"):
+            self.catalog.register_arrow(name, data)
+        else:
+            raise TypeError(f"Cannot register {type(data)}")
+
+    def get_table_schema(self, name: str):
+        return self.catalog.get_schema(name)
+
+    def drop_table(self, name: str) -> None:
+        self.catalog.drop_table(name)
+
+    # -- planning ------------------------------------------------------------
+    def plan_query(self, sql: str):
+        """SQL -> optimized physical plan."""
+        return create_physical_plan(optimize(parse_sql(sql)), self.catalog,
+                                    self.config)
+
+    def explain(self, sql: str) -> str:
+        logical = parse_sql(sql)
+        optimized = optimize(logical)
+        physical = create_physical_plan(optimized, self.catalog, self.config)
+        return (
+            "== Logical ==\n" + str(logical)
+            + "\n== Optimized ==\n" + str(optimized)
+            + "\n== Physical ==\n" + str(physical)
+        )
+
+    # -- execution -----------------------------------------------------------
     def execute_query(self, sql: str) -> QueryResult:
         with Timer() as t_plan:
             physical = self.plan_query(sql)
@@ -117,6 +179,70 @@ class TorchOlapEngine(OlapEngine):
             "backend": backend,
             "routes": routes,
         })
+
+    def query(self, sql: str) -> QueryResult:
+        return self.execute_query(sql)
+
+    def query_async(self, sql: str) -> "Future[QueryResult]":
+        """Submit a query to the engine's thread pool and return a
+        ``concurrent.futures.Future``.  Pool width follows
+        ``num_feed_buffers``."""
+        return self._get_pool().submit(self.execute_query, sql)
+
+    async def aquery(self, sql: str) -> QueryResult:
+        """asyncio coroutine form of :meth:`query_async`."""
+        import asyncio
+
+        return await asyncio.wrap_future(self.query_async(sql))
+
+    def shutdown(self) -> None:
+        """Drain and close the concurrent-query pool (idempotent)."""
+        with self._exec_init_lock:
+            pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
+
+    def _get_pool(self) -> ThreadPoolExecutor:
+        if self._pool is None:
+            with self._exec_init_lock:
+                if self._pool is None:
+                    self._pool = ThreadPoolExecutor(
+                        max_workers=max(self.config.num_feed_buffers, 1),
+                        thread_name_prefix="olap-query")
+        return self._pool
+
+    def query_pandas(self, df, sql: str) -> QueryResult:
+        """Query a pandas DataFrame registered as table ``df``; concurrent
+        frame queries serialize on the fixed name."""
+        with self._df_lock:
+            self.catalog.register_pandas("df", df)
+            try:
+                return self.execute_query(sql)
+            finally:
+                self.catalog.drop_table("df")
+
+    def query_polars(self, df, sql: str) -> QueryResult:
+        """Query a polars DataFrame (through Arrow) registered as ``df``."""
+        with self._df_lock:
+            self.catalog.register_arrow("df", df.to_arrow())
+            try:
+                return self.execute_query(sql)
+            finally:
+                self.catalog.drop_table("df")
+
+    # -- internals -----------------------------------------------------------
+    @staticmethod
+    def _referenced_tables(physical) -> list:
+        names = set()
+
+        def walk(p):
+            if isinstance(p, TpuTableScan):
+                names.add(p.table_name)
+            for k in p.inputs():
+                walk(k)
+
+        walk(physical)
+        return sorted(names)
 
     def _resolve_backend(self) -> str:
         # "auto" means the torch device path: torch is this package's

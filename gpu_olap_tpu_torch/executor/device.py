@@ -40,12 +40,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from gpu_olap_tpu.config import EngineConfig
-from gpu_olap_tpu.interop.columnar import Column, ColumnBatch, DType, Schema
-from gpu_olap_tpu.plan import physical as P
-from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS, Timer
-from gpu_olap_tpu.utils.tracing import get_logger
-
+from ..config import EngineConfig
+from ..interop.columnar import Column, ColumnBatch, DType, Schema
+from ..plan import physical as P
+from ..utils.metrics import GLOBAL_METRICS, Timer
+from ..utils.tracing import get_logger
 from ..ops import aggregate as agg_ops
 from ..ops import filter as filter_ops
 from ..ops import join as join_ops

@@ -29,8 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS
-
+from ..utils.metrics import GLOBAL_METRICS
 from .dtypes import INT64_MAX, INT64_MIN, key_code, key_fill, torch_dtype
 from .sort import lexsort
 

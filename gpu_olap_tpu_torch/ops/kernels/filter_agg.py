@@ -101,25 +101,46 @@ def filter_agg_i32(filt: torch.Tensor, op: str, threshold: int, cols,
 
     dev = filt.device
     k = len(cols)
-    count = torch.zeros(1, dtype=torch.int64, device=dev)
-    sums = torch.zeros(max(k, 1), dtype=torch.int64, device=dev)
-    mins = torch.full((max(k, 1),), _I32_MAX, dtype=torch.int32, device=dev)
-    maxs = torch.full((max(k, 1),), _I32_MIN, dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
     if n_valid == 0:
-        # no row to scan: the identities above are the result, nothing launches
-        return count[0], [(sums[i], mins[i], maxs[i]) for i in range(k)]
+        # no row to scan: the identities are the result, nothing launches
+        sums = torch.zeros(max(k, 1), dtype=torch.int64, device=dev)
+        mins = torch.full((max(k, 1),), _I32_MAX, **i32)
+        maxs = torch.full((max(k, 1),), _I32_MIN, **i32)
+        return (torch.zeros((), dtype=torch.int64, device=dev),
+                [(sums[i], mins[i], maxs[i]) for i in range(k)])
     lib = _build.load()
-    # an aliased column is passed as the filter pointer: the kernel reads it once
-    ptrs = (ctypes.c_void_p * max(k, 1))(
-        *[filt.data_ptr() if c is filt else c.data_ptr() for c in cols])
+    # nothing is pre-filled: the kernel's last block writes every output
+    count = torch.empty(1, dtype=torch.int64, device=dev)
+    sums = torch.empty(max(k, 1), dtype=torch.int64, device=dev)
+    mins = torch.empty(max(k, 1), **i32)
+    maxs = torch.empty(max(k, 1), **i32)
+    partials = torch.empty(lib.olap_filter_agg_partials_bytes(),
+                           dtype=torch.uint8, device=dev)
+    # the kernel reads each distinct pointer once: a column aliasing the
+    # filter or another column is not read again
+    ptrs = (ctypes.c_void_p * max(k, 1))(*[c.data_ptr() for c in cols])
     want_sum = sum(1 << i for i, w in enumerate(wants) if w[0])
     want_mm = sum(1 << i for i, w in enumerate(wants) if w[1])
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        cur = torch.cuda.current_stream(dev)
         err = lib.olap_filter_agg_i32(
             filt.data_ptr(), ptrs, k, OPS.index(op), int(threshold), n_valid,
-            want_sum, want_mm, count.data_ptr(), sums.data_ptr(),
-            mins.data_ptr(), maxs.data_ptr(), stream)
+            want_sum, want_mm, partials.data_ptr(),
+            _done_counter(dev, cur).data_ptr(), count.data_ptr(),
+            sums.data_ptr(), mins.data_ptr(), maxs.data_ptr(), cur.cuda_stream)
     _build.check(err, "filter_agg launch")
     _build.launches["filter_agg"] += 1
     return count[0], [(sums[i], mins[i], maxs[i]) for i in range(k)]
+
+
+#: per (device, stream): the zeroed counter that orders the kernel's blocks;
+#: each launch leaves it zero, and launches on one stream never overlap
+_DONE = {}
+
+
+def _done_counter(dev, stream) -> torch.Tensor:
+    key = (dev.index, stream.cuda_stream)
+    if key not in _DONE:
+        _DONE[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _DONE[key]

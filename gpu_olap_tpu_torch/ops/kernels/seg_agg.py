@@ -81,18 +81,22 @@ def seg_agg_sorted_i32(keys_sorted: torch.Tensor, vals_sorted: torch.Tensor,
         raise ValueError("seg_agg takes contiguous tensors")
 
     lib = _build.load()
-    tile = lib.olap_seg_agg_tile_rows()
-    n_tiles = -(-n // tile)
-    scratch = torch.empty(2 * n_tiles, dtype=torch.int32, device=dev)
-    key_g, cnt_g, sum_g, mn_g, mx_g = _empty_outputs(max_groups, dev)
-    n_groups = torch.zeros((), dtype=torch.int32, device=dev)
+    # no output is pre-filled: the kernel writes every slot below the group
+    # count and a tail launch zeroes the rest
+    i32 = dict(dtype=torch.int32, device=dev)
+    key_g, cnt_g = torch.empty(max_groups, **i32), torch.empty(max_groups, **i32)
+    sum_g = torch.empty(max_groups, dtype=torch.int64, device=dev)
+    mn_g, mx_g = torch.empty(max_groups, **i32), torch.empty(max_groups, **i32)
+    n_groups = torch.empty((), **i32)
+    scratch = torch.empty(lib.olap_seg_agg_scratch_bytes(n), dtype=torch.uint8,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.olap_seg_agg_i32(
             keys_sorted.data_ptr(), vals_sorted.data_ptr(), n, max_groups,
-            scratch.data_ptr(), scratch[n_tiles:].data_ptr(),
-            key_g.data_ptr(), cnt_g.data_ptr(), sum_g.data_ptr(),
-            mn_g.data_ptr(), mx_g.data_ptr(), n_groups.data_ptr(), stream)
+            scratch.data_ptr(), key_g.data_ptr(), cnt_g.data_ptr(),
+            sum_g.data_ptr(), mn_g.data_ptr(), mx_g.data_ptr(),
+            n_groups.data_ptr(), stream)
     _build.check(err, "seg_agg launch")
     _build.launches["seg_agg"] += 1
     return key_g, cnt_g, sum_g, mn_g, mx_g, n_groups

@@ -34,13 +34,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from gpu_olap_tpu.config import EngineConfig
-from gpu_olap_tpu.executor.cpu import CpuExecutor
-from gpu_olap_tpu.interop.columnar import Column, ColumnBatch, DType
-from gpu_olap_tpu.plan import physical as P
-from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS
-from gpu_olap_tpu.utils.tracing import get_logger
-
+from ..config import EngineConfig
+from ..executor.cpu import CpuExecutor
+from ..interop.columnar import Column, ColumnBatch, DType
+from ..plan import physical as P
+from ..utils.metrics import GLOBAL_METRICS
+from ..utils.tracing import get_logger
 from ..executor.device import (DevBatch, DevCol, _decode_key, _gather_col,
                                _masked_minmax, _np_kind)
 from ..ops import aggregate as agg_ops

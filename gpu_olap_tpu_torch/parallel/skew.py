@@ -13,10 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS
-
 from ..ops.hashing import partition_of
 from ..ops.kernels.partition import radix_histogram_i32
+from ..utils.metrics import GLOBAL_METRICS
 
 #: JAX's gate for the radix-histogram kernel (``skew.py:37``)
 HIST_KERNEL_MIN_KEYS = 32768

@@ -3,7 +3,7 @@
 ``TorchOlapEngine`` with ``mesh_shape=(8,)`` runs on eight logical CPU
 shards (``mesh_devices=["cpu"] * 8``); JAX's distributed engine on the
 8-device virtual mesh of ``conftest.py``; the NumPy oracle defines the
-answers.  The three share one catalog.  Results compare as row multisets
+answers.  The three hold the same tables (``mirror_tables``).  Results compare as row multisets
 (in order where the query orders them): integers exactly, floats within
 ``rtol=1e-12`` (aggregates are summed in another order).  Each query must
 report ``backend == "torch-distributed"`` and the route counter of its
@@ -15,9 +15,9 @@ import pytest
 
 from conftest import make_engine
 from test_dist_executor import QUERIES
+from test_torch_engine import mirror_tables
 
-from gpu_olap_tpu import EngineConfig
-from gpu_olap_tpu_torch import TorchOlapEngine
+from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
 
 MESH = ["cpu"] * 8
 
@@ -103,9 +103,8 @@ def engines():
     port.register("fd", {"f": np.arange(-8, 8, dtype=float),
                          "w": np.arange(16)})
     jax_dist = make_engine("device", mesh_shape=(8,), **cfg)
-    jax_dist.catalog = port.catalog
     cpu = make_engine("cpu")
-    cpu.catalog = port.catalog
+    mirror_tables(port, jax_dist, cpu)
     return port, jax_dist, cpu
 
 
@@ -212,7 +211,7 @@ def test_overflow_retries_stay_distributed():
     port.register("t", {"k": rng.integers(0, 500, 20_000),
                         "v": rng.integers(0, 100, 20_000)})
     cpu = make_engine("cpu")
-    cpu.catalog = port.catalog
+    mirror_tables(port, cpu)
     sql = "SELECT k, SUM(v) AS s FROM t GROUP BY k"
     got = port.query(sql)
     assert got.metrics["backend"] == "torch-distributed"

@@ -1,8 +1,10 @@
 """The port's single-device SQL path as a whole, on the CPU.
 
-Each query runs on three engines that share one ``Catalog``: the port
+Each query runs on three engines over the same tables: the port
 (``TorchOlapEngine(device="cpu")``), the JAX device engine and the NumPy
-oracle.  Results are compared as row multisets: integers exactly, floats
+oracle of the JAX package.  The port keeps its own catalog classes, so
+``mirror_tables`` registers the port's tables, array for array, in the
+JAX package's engines.  Results are compared as row multisets: integers exactly, floats
 within ``rtol=1e-12`` (aggregates are summed in another order) and
 ``atol=1e-12`` (for sums near zero).  Join queries also check that the port
 takes the route the JAX engine takes (streaming join, sorted-space join
@@ -22,9 +24,10 @@ from conftest import make_engine
 from test_device_parity import QUERIES, _populate
 from test_fuzz_parity import N_QUERIES, _gen_query, _gen_tables
 
-from gpu_olap_tpu import EngineConfig
-from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS
-from gpu_olap_tpu_torch import TorchOlapEngine
+from gpu_olap_tpu.interop import columnar as jcol
+from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS as JAX_METRICS
+from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+from gpu_olap_tpu_torch.utils.metrics import GLOBAL_METRICS
 from gpu_olap_tpu_torch.executor import device as tdev
 from gpu_olap_tpu_torch.ops.kernels import join_stream as tjs
 
@@ -46,6 +49,21 @@ SLICE_QUERIES = list(QUERIES) + [
 
 def _port(**kwargs):
     return TorchOlapEngine(EngineConfig(**kwargs), device="cpu")
+
+
+def mirror_tables(port, *engines):
+    """Register every table of the port engine ``port`` in the JAX
+    package's ``engines``: the same arrays, validity masks and dictionaries
+    under the JAX package's own schema classes."""
+    for name in port.catalog.list_tables():
+        b = port.catalog.get_table_data(name)
+        schema = jcol.Schema([jcol.Field(f.name, jcol.DType(f.dtype.value),
+                                         f.nullable) for f in b.schema])
+        cols = [jcol.Column(c.data, c.validity, c.dictionary)
+                for c in b.columns]
+        for eng in engines:
+            eng.catalog.register_batch(
+                name, jcol.ColumnBatch(schema, cols, b.num_rows))
 
 
 def _canon(result):
@@ -79,9 +97,8 @@ def engines():
     port = _port()
     _populate(port, np.random.default_rng(123))
     jax_dev = make_engine("device")
-    jax_dev.catalog = port.catalog
     cpu = make_engine("cpu")
-    cpu.catalog = port.catalog
+    mirror_tables(port, jax_dev, cpu)
     return port, jax_dev, cpu
 
 
@@ -106,7 +123,7 @@ def test_fuzz_port_matches_oracle(seed):
     port.register("t1", t1)
     port.register("t2", t2)
     cpu = make_engine("cpu")
-    cpu.catalog = port.catalog
+    mirror_tables(port, cpu)
     got = port.query(sql)
     assert got.metrics["backend"] == "torch-cpu", sql
     _assert_same_rows(_canon(got), _canon(cpu.query(sql)), sql)
@@ -121,7 +138,7 @@ def test_cuda_port_matches_oracle_on_corpus():
     port = TorchOlapEngine(EngineConfig(), device="cuda")
     _populate(port, np.random.default_rng(123))
     cpu = make_engine("cpu")
-    cpu.catalog = port.catalog
+    mirror_tables(port, cpu)
     for sql in SLICE_QUERIES:
         got = port.query(sql)
         assert got.metrics["backend"] == "torch-cuda", sql
@@ -132,6 +149,7 @@ def test_cuda_port_matches_oracle_on_corpus():
         sql = _gen_query(rng)
         port.register("t1", t1)
         port.register("t2", t2)
+        mirror_tables(port, cpu)
         got = port.query(sql)
         assert got.metrics["backend"] == "torch-cuda", sql
         _assert_same_rows(_canon(got), _canon(cpu.query(sql)), sql)
@@ -147,9 +165,9 @@ def test_ordered_query_preserves_order(engines):
 
 
 def test_join_runs_on_device(engines):
-    _, _, cpu = engines
+    shared, _, cpu = engines
     port = _port()  # a fresh result cache: the corpus ran this query
-    port.catalog = cpu.catalog
+    port.catalog = shared.catalog
     sql = ("SELECT s.amount, c.customer_name FROM sales s JOIN customers c "
            "ON s.customer_id = c.customer_id WHERE s.amount > 180")
     got = port.query(sql)
@@ -181,9 +199,8 @@ def bench_engines():
                          "v": rng.integers(0, 1_000_000, 40_000)})
     jax_dev = make_engine("device", max_groups=1 << 23,
                           min_shape_bucket=1 << 16, enable_cache=False)
-    jax_dev.catalog = port.catalog
     cpu = make_engine("cpu")
-    cpu.catalog = port.catalog
+    mirror_tables(port, jax_dev, cpu)
     return port, jax_dev, cpu
 
 
@@ -219,9 +236,9 @@ def test_filter_agg_matcher(bench_engines, sql, fused):
 
 
 def test_use_pallas_false_still_correct(bench_engines):
-    _, _, cpu = bench_engines
+    shared, _, cpu = bench_engines
     port = _port(use_pallas=False)
-    port.catalog = cpu.catalog
+    port.catalog = shared.catalog
     sql = "SELECT k, SUM(v) AS s, MIN(v) AS mn FROM gb GROUP BY k"
     got, hits = _bumped("torch_seg_agg_path", lambda: port.query(sql))
     assert hits == 0
@@ -237,7 +254,7 @@ def test_group_capacity_overflow_regrows(rows):
     port = _port(max_groups=16)
     port.register("t", {"k": np.arange(rows) % 300, "v": np.arange(rows)})
     cpu = make_engine("cpu")
-    cpu.catalog = port.catalog
+    mirror_tables(port, cpu)
     sql = "SELECT k, SUM(v) AS s, MAX(v) AS mx FROM t GROUP BY k"
     got = port.query(sql)
     assert got.metrics["backend"] == "torch-cpu"
@@ -267,7 +284,7 @@ def test_empty_table(sql):
     port = _port()
     port.register("e", {"k": np.zeros(0, np.int64), "v": np.zeros(0, np.int64)})
     cpu = make_engine("cpu")
-    cpu.catalog = port.catalog
+    mirror_tables(port, cpu)
     got = port.query(sql)
     assert got.metrics["backend"] == "torch-cpu"
     _assert_same_rows(_canon(got), _canon(cpu.query(sql)), sql)
@@ -284,17 +301,19 @@ ROUTES = {"pallas_join_stream_trace": "torch_join_stream_path",
           "sorted_grouped_join_agg": "torch_sorted_grouped_join_agg"}
 
 
-def _routes_taken(fn, counters):
-    before = {c: GLOBAL_METRICS.counters.get(c, 0) for c in counters}
+def _routes_taken(fn, counters, metrics):
+    """The ``counters`` of the registry ``metrics`` that ``fn`` bumped."""
+    before = {c: metrics.counters.get(c, 0) for c in counters}
     out = fn()
     return out, {c for c in counters
-                 if GLOBAL_METRICS.counters.get(c, 0) > before[c]}
+                 if metrics.counters.get(c, 0) > before[c]}
 
 
 def _check_join_query(port, jax_dev, cpu, sql):
     got, port_routes = _routes_taken(lambda: port.query(sql),
-                                     ROUTES.values())
-    exp, jax_routes = _routes_taken(lambda: jax_dev.query(sql), ROUTES)
+                                     ROUTES.values(), GLOBAL_METRICS)
+    exp, jax_routes = _routes_taken(lambda: jax_dev.query(sql), ROUTES,
+                                    JAX_METRICS)
     assert got.metrics["backend"] == "torch-cpu", sql
     assert port_routes == {ROUTES[r] for r in jax_routes}, sql
     # the routes the result reports are the counters the query bumped
@@ -340,9 +359,8 @@ def groupjoin_engines(request):
     for name, t in tables.items():
         port.register(name, t)
     jax_dev = make_engine("device", **cfg)
-    jax_dev.catalog = port.catalog
     cpu = make_engine("cpu")
-    cpu.catalog = port.catalog
+    mirror_tables(port, jax_dev, cpu)
     return port, jax_dev, cpu
 
 
@@ -392,9 +410,8 @@ def test_joins_queries_take_jax_routes(name):
     for tname, t in tables.items():
         port.register(tname, t)
     jax_dev = make_engine("device", **cfg)
-    jax_dev.catalog = port.catalog
     cpu = make_engine("cpu")
-    cpu.catalog = port.catalog
+    mirror_tables(port, jax_dev, cpu)
     _check_join_query(port, jax_dev, cpu, sql)
 
 
@@ -418,7 +435,7 @@ def test_stream_join_engages_and_matches_oracle(monkeypatch, use_pallas):
     for tname, t in tables.items():
         port.register(tname, t)
     cpu = make_engine("cpu")
-    cpu.catalog = port.catalog
+    mirror_tables(port, cpu)
     got, hits = _bumped("torch_join_stream_path", lambda: port.query(sql))
     assert got.metrics["backend"] == "torch-cpu"
     assert hits == (1 if use_pallas else 0)
@@ -438,7 +455,7 @@ def test_join_capacity_overflow_regrows(n):
     port.register("r", {"k": rng.integers(0, n // 4, n),
                         "w": rng.integers(0, 100, n)})
     cpu = make_engine("cpu")
-    cpu.catalog = port.catalog
+    mirror_tables(port, cpu)
     sql = "SELECT l.v, r.w FROM l JOIN r ON l.k = r.k"
     got, hits = _bumped("torch_join_stream_path", lambda: port.query(sql))
     assert got.metrics["backend"] == "torch-cpu"
@@ -471,9 +488,8 @@ def test_tables_from_numpy_matches_device_tables(engines):
     port, jax_dev, _ = engines
     for sql in ("SELECT * FROM nullt", "SELECT * FROM sales",
                 "SELECT * FROM customers"):
-        plan = port.plan_query(sql)
         (name, jentry), = jax_dev._get_device_executor()._device_tables(
-            plan).items()
+            jax_dev.plan_query(sql)).items()
         as_np = dict(jentry)
         as_np["arrays"] = [(np.asarray(d), None if v is None else np.asarray(v))
                            for d, v in jentry["arrays"]]
@@ -481,10 +497,14 @@ def test_tables_from_numpy_matches_device_tables(engines):
         as_np["dense_idx"] = {i: np.asarray(a)
                               for i, a in jentry["dense_idx"].items()}
         got = tdev.tables_from_numpy(as_np, torch.device("cpu"))
-        own = port._get_device_executor()._device_tables(plan)[name]
-        for key in ("num_rows", "capacity", "int32_ok", "ranges", "uniques",
-                    "schema"):
+        own = port._get_device_executor()._device_tables(
+            port.plan_query(sql))[name]
+        for key in ("num_rows", "capacity", "int32_ok", "ranges", "uniques"):
             assert got[key] == own[key], key
+        # the two packages' schema classes differ: compare field by field
+        assert ([(f.name, f.dtype.value, f.nullable) for f in got["schema"]]
+                == [(f.name, f.dtype.value, f.nullable)
+                    for f in own["schema"]])
         assert len(got["dicts"]) == len(own["dicts"])
         for a, b in zip(got["dicts"], own["dicts"]):
             assert tdev._dicts_equal(a, b)

@@ -263,6 +263,190 @@ def test_seg_agg_cuda_matches_plain(case):
 
 
 # ---------------------------------------------------------------------------
+# edge cases of the one-pass seg_agg (4096-row tiles joined by a decoupled
+# look-back) and of the specialised filter_agg (one kernel per operator and
+# number of distinct streams, a last-block finish): kernel against its
+# plain version on the same CUDA tensors
+# ---------------------------------------------------------------------------
+
+TILE = 4096  # rows per seg_agg tile (csrc/seg_agg.cu kTile)
+
+
+def _seg_edge(name):
+    """(keys, vals, max_groups) as numpy, and the view offset to apply."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if name == "groups_span_many_tiles":
+        sizes = rng.integers(1, 40 * TILE, 60)
+        k = np.repeat(np.arange(len(sizes)) * 11 - 300, sizes)
+        return (*_co_sort(k, rng.integers(-(1 << 30), 1 << 30, len(k))), 64), 0
+    if name == "one_group_sum_past_2p31":
+        n = 3_000_001
+        return (np.full(n, 9, np.int32), np.full(n, (1 << 30) + 7, np.int32),
+                2), 0
+    if name == "every_row_many_tiles":
+        n = 1_000_003
+        return (np.arange(n, dtype=np.int32) - 500,
+                -np.arange(n, dtype=np.int32), n), 0
+    if name == "n_1":
+        return (np.array([I32_MIN], np.int32), np.array([-7], np.int32), 3), 0
+    if name == "n_1_max_groups_0":
+        return (np.array([4], np.int32), np.array([5], np.int32), 0), 0
+    if name == "ragged_last_tile":
+        n = 7 * TILE + 1234
+        k = np.sort(rng.integers(0, 900, n))
+        return (*_co_sort(k, rng.integers(-1000, 1000, n)), 1000), 0
+    if name in ("max_groups_cut_mid_tiles", "max_groups_0_many_tiles"):
+        sizes = rng.integers(1, 3000, 4000)
+        k = np.repeat(np.arange(len(sizes)) * 3, sizes)
+        kv = _co_sort(k, rng.integers(I32_MIN, I32_MAX, len(k), endpoint=True))
+        return (*kv, 1234 if name.startswith("max_groups_cut") else 0), 0
+    if name in ("negative_and_sentinel", "unaligned_view"):
+        n = 777_777
+        k = np.sort(rng.integers(-(1 << 31), -1, n))
+        k[-100_000:] = I32_MAX
+        return ((*_co_sort(k, rng.integers(I32_MIN, 0, n)), n),
+                1 if name == "unaligned_view" else 0)
+    raise KeyError(name)
+
+
+SEG_EDGE = ["groups_span_many_tiles", "one_group_sum_past_2p31",
+            "every_row_many_tiles", "n_1", "n_1_max_groups_0",
+            "ragged_last_tile", "max_groups_cut_mid_tiles",
+            "max_groups_0_many_tiles", "negative_and_sentinel",
+            "unaligned_view"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SEG_EDGE)
+def test_seg_agg_cuda_edge_cases(case):
+    dev = _cuda_device()
+    (keys, vals, max_groups), off = _seg_edge(case)
+    k = torch.from_numpy(keys).to(dev)[off:]
+    v = torch.from_numpy(vals).to(dev)[off:]
+    got = tsa.seg_agg_sorted_i32(k, v, max_groups)
+    exp = tsa.seg_agg_plain(k, v, max_groups)
+    torch.cuda.synchronize()
+    for g, e in zip(got, exp):
+        np.testing.assert_array_equal(g.cpu().numpy(), e.cpu().numpy())
+
+
+def _filter_edge(name, dev):
+    """(filt, op, thr, cols, n_valid, wants) as tensors on ``dev``."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    n = 100_000
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+    v = t(rng.integers(0, 1000, n))
+    w = t(rng.integers(-50, 50, n))
+    cols8 = [t(rng.integers(-(1 << 30), 1 << 30, n)) for _ in range(8)]
+    if name.split("_")[0] == "cols" and name.split("_")[1].isdigit():
+        k = int(name.split("_")[1])
+        if name.endswith("_alias"):
+            return v, "lt", 600, (v,) + tuple(cols8[:max(k - 1, 0)]), None, None
+        return v, "ge", 300, tuple(cols8[:k]), None, None
+    if name.startswith("op_"):
+        return v, name.split("_")[1], 500, (v, w) + tuple(cols8[:6]), None, None
+    big = t(rng.integers(-1000, 1000, 5_000_003))
+    return {
+        "cols_repeated": (v, "ne", 7, (w, v, w, cols8[0], v), None, None),
+        "unaligned_filter_aligned_cols": (v[3:], "gt", 100,
+                                          (w[:n - 3], v[3:]), None, None),
+        "unaligned_cols_5": (w[1:], "le", 20,
+                             tuple(c[1:] for c in cols8[:5]), None, None),
+        "n_valid_1": (v, "ge", 0, (v, w), 1, None),
+        "n_valid_3": (w, "ne", 1000, (w,), 3, None),
+        "n_valid_4097": (v, "gt", 10, (v, w), 4097, None),
+        "no_match_8_cols": (v, "gt", I32_MAX, tuple(cols8), None, None),
+        "lt_int32_min": (v, "lt", I32_MIN, (v,), None, None),
+        "wants_none": (v, "gt", 100, (v, w), None,
+                       ((False, False), (False, False))),
+        "wants_mixed_alias": (v, "le", 500, (v, v, w), None,
+                              ((True, False), (False, True), (True, True))),
+        "many_blocks": (big, "gt", -5, (big, -big), None, None),
+        "many_blocks_n_valid": (big, "eq", 3, (big,), 4_999_001, None),
+    }[name]
+
+
+FILTER_EDGE = ([f"cols_{k}" for k in range(9)]
+               + [f"cols_{k}_alias" for k in range(1, 9)]
+               + [f"op_{op}_8_cols" for op in tfa.OPS]
+               + ["cols_repeated", "unaligned_filter_aligned_cols",
+                  "unaligned_cols_5", "n_valid_1", "n_valid_3", "n_valid_4097",
+                  "no_match_8_cols", "lt_int32_min", "wants_none",
+                  "wants_mixed_alias", "many_blocks", "many_blocks_n_valid"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FILTER_EDGE)
+def test_filter_agg_cuda_edge_cases(case):
+    dev = _cuda_device()
+    f, op, thr, cols, n_valid, wants = _filter_edge(case, dev)
+    got = tfa.filter_agg_i32(f, op, thr, cols, n_valid, wants)
+    exp = tfa.filter_agg_plain(f, op, thr, cols, n_valid, wants)
+    torch.cuda.synchronize()
+    assert _as_ints(got) == _as_ints(exp)
+
+
+@pytest.mark.parametrize("case", FILTER_EDGE)
+def test_filter_agg_edge_cases_plain_matches_numpy(case):
+    """The CUDA twins' inputs on the CPU: the plain version against numpy,
+    so each case is known to be well formed before it reaches the card."""
+    f, op, thr, cols, n_valid, wants = _filter_edge(case, "cpu")
+    n = f.shape[0] if n_valid is None else n_valid
+    fn = f.numpy()[:n].astype(np.int64)
+    m = {"gt": fn > thr, "ge": fn >= thr, "lt": fn < thr, "le": fn <= thr,
+         "eq": fn == thr, "ne": fn != thr}[op]
+    wants = wants or ((True, True),) * len(cols)
+    exp = []
+    for c, (ws, wm) in zip(cols, wants):
+        x = c.numpy()[:n][m].astype(np.int64)
+        exp.append((int(x.sum()) if ws else 0,
+                    int(x.min()) if wm and len(x) else I32_MAX,
+                    int(x.max()) if wm and len(x) else I32_MIN))
+    got = tfa.filter_agg_i32(f, op, thr, cols, n_valid, wants)
+    assert _as_ints(got) == (int(m.sum()), exp)
+
+
+@pytest.mark.parametrize("case", SEG_EDGE)
+def test_seg_agg_edge_cases_plain_matches_numpy(case):
+    """The CUDA twins' inputs on the CPU: the plain version against numpy."""
+    (keys, vals, max_groups), off = _seg_edge(case)
+    keys, vals = keys[off:], vals[off:]
+    got = [o.numpy() for o in tsa.seg_agg_sorted_i32(
+        torch.from_numpy(keys), torch.from_numpy(vals), max_groups)]
+    starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+    ends = np.r_[starts[1:], len(keys)] - 1
+    m = min(len(starts), max_groups)
+    sums = np.add.reduceat(vals.astype(np.int64), starts)
+    assert int(got[5]) == len(starts)
+    for out, exp in zip(got[:5], (keys[starts], ends - starts + 1, sums,
+                                  vals[starts], vals[ends])):
+        assert out.shape == (max_groups,)
+        np.testing.assert_array_equal(out[:m], exp[:m])
+        assert not out[m:].any()
+
+
+def test_ptxas_report_reads_registers_and_spills(tmp_path):
+    log = tmp_path / "ptxas.log"
+    log.write_text(
+        "== seg_agg.cu\n"
+        "ptxas info    : Compiling entry function '_Z3fooPi' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooPi\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers\n"
+        "== filter_agg.cu\n"
+        "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 48 registers, used 1 barriers\n")
+    rows = _build.ptxas_report(str(log))
+    assert [(r["source"], r["registers"], r["spill_stores"], r["spill_loads"])
+            for r in rows] == [("seg_agg.cu", 40, 8, 12),
+                               ("filter_agg.cu", 48, 0, 0)]
+
+
+# ---------------------------------------------------------------------------
 # stream_compact and expand_fill: the cases of test_pallas_kernels.py
 # (the JAX kernels take inputs padded to their 2048-element step; the
 # port's take exact lengths)

@@ -353,7 +353,7 @@ def test_groupby_aggregate_matches_jax(case, allow_kernel, interpret_mode):
 
 
 def test_seg_agg_path_engages_on_hot_shapes():
-    from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS
+    from gpu_olap_tpu_torch.utils.metrics import GLOBAL_METRICS
 
     for case in ("seg_ride", "seg_payload", "seg_count_only"):
         before = GLOBAL_METRICS.counters.get("torch_seg_agg_path", 0)

@@ -27,7 +27,6 @@ from gpu_olap_tpu.parallel import mesh as jmesh
 from gpu_olap_tpu.parallel import shuffle as jshuffle
 from gpu_olap_tpu.parallel import skew as jskew
 from gpu_olap_tpu.parallel.dist_executor import np_partition_hist
-from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS
 from gpu_olap_tpu_torch.ops import hashing as thash
 from gpu_olap_tpu_torch.ops.kernels import partition as tpart
 from gpu_olap_tpu_torch.parallel import collectives as tcoll
@@ -36,6 +35,7 @@ from gpu_olap_tpu_torch.parallel import dist_ops as tdo
 from gpu_olap_tpu_torch.parallel import mesh as tmesh
 from gpu_olap_tpu_torch.parallel import shuffle as tshuffle
 from gpu_olap_tpu_torch.parallel import skew as tskew
+from gpu_olap_tpu_torch.utils.metrics import GLOBAL_METRICS
 
 NDEV = 8
 

@@ -1,0 +1,170 @@
+"""The port stands alone: it imports neither JAX nor the JAX package.
+
+(a) No ``.py`` file of ``gpu_olap_tpu_torch`` and no chip script
+    imports ``jax``, ``gpu_olap_tpu`` or a submodule of either (names match
+    exactly, so ``gpu_olap_tpu_torch`` itself is allowed).
+(b) With ``jax`` and ``gpu_olap_tpu`` blocked from import, the port answers
+    a filtered aggregate, a GROUP BY, a join and a UNION ALL on the CPU, as
+    numpy does.
+(c) The port's own parser, optimizer and planner give the JAX package's
+    ``explain`` text for every query of the port's parity corpus.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+from conftest import make_engine
+from test_device_parity import _populate
+from test_torch_engine import SLICE_QUERIES, mirror_tables
+
+import gpu_olap_tpu_torch
+from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(
+    gpu_olap_tpu_torch.__file__)))
+PKG = os.path.join(ROOT, "gpu_olap_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "gpu_olap_tpu")
+
+
+def _sources():
+    out = []
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.relpath(os.path.join(dirpath, f), ROOT)
+                for f in files if f.endswith(".py")]
+    return sorted(out) + ["chip_smoke.py", "chip_trace.py",
+                          "chip_kernel_ab.py"]
+
+
+def _imported_modules(path):
+    """Absolute names of every module ``path`` imports, relative imports
+    resolved against its package."""
+    rel = os.path.relpath(path, ROOT)
+    package = os.path.dirname(rel).replace(os.sep, ".")
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                parts = package.split(".")
+                base = parts[:len(parts) - node.level + 1]
+                mod = ".".join(base + ([node.module] if node.module else []))
+            else:
+                mod = node.module
+            names.append(mod)
+            # ``from pkg import sub`` may import a submodule
+            names += [f"{mod}.{a.name}" for a in node.names]
+    return names
+
+
+def _forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", _sources())
+def test_no_import_of_jax_or_the_jax_package(path):
+    bad = sorted({n for n in _imported_modules(path) if _forbidden(n)})
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_the_ast_check_catches_a_forbidden_import():
+    """The matcher itself: exact names, and the port's name allowed."""
+    assert _forbidden("gpu_olap_tpu") and _forbidden("gpu_olap_tpu.sql.parser")
+    assert _forbidden("jax.numpy") and _forbidden("jax")
+    assert not _forbidden("gpu_olap_tpu_torch")
+    assert not _forbidden("gpu_olap_tpu_torch.plan.physical")
+    assert not _forbidden("jaxtyping")
+    names = _imported_modules("gpu_olap_tpu_torch/engine.py")
+    assert "gpu_olap_tpu_torch.plan.physical" in names
+
+
+_BLOCKED_RUN = textwrap.dedent("""
+    import sys
+
+    class _Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "gpu_olap_tpu"):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, _Block())
+
+    import numpy as np
+    from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+
+    rng = np.random.default_rng(0)
+    n = 70_000
+    k = rng.integers(0, 300, n)
+    v = rng.integers(-1000, 1000, n)
+    eng = TorchOlapEngine(EngineConfig(), device="cpu")
+    eng.register("t", {"k": k, "v": v})
+    eng.register("d", {"k": np.arange(200), "w": np.arange(200) * 3})
+
+    def run(sql):
+        r = eng.query(sql)
+        assert r.metrics["backend"] == "torch-cpu", (sql, r.metrics)
+        return r.to_pandas()
+
+    # filtered global aggregate
+    df = run("SELECT COUNT(*) AS n, SUM(v) AS s, MIN(v) AS mn, MAX(v) AS mx "
+             "FROM t WHERE v > 100")
+    m = v > 100
+    assert df.n[0] == m.sum() and df.s[0] == v[m].sum()
+    assert df.mn[0] == v[m].min() and df.mx[0] == v[m].max()
+
+    # GROUP BY
+    df = run("SELECT k, COUNT(*) AS c, SUM(v) AS s FROM t GROUP BY k")
+    df = df.sort_values("k").reset_index(drop=True)
+    uk, inv = np.unique(k, return_inverse=True)
+    assert (df.k.to_numpy() == uk).all()
+    assert (df.c.to_numpy() == np.bincount(inv)).all()
+    assert (df.s.to_numpy() == np.bincount(inv, weights=v).astype(np.int64)).all()
+
+    # join + aggregate
+    df = run("SELECT COUNT(*) AS c, SUM(t.v + d.w) AS s FROM t JOIN d "
+             "ON t.k = d.k")
+    j = k < 200
+    assert df.c[0] == j.sum() and df.s[0] == (v[j] + 3 * k[j]).sum()
+
+    # UNION ALL
+    df = run("SELECT k FROM t WHERE v > 990 UNION ALL "
+             "SELECT k FROM d WHERE w < 30")
+    exp = np.sort(np.concatenate([k[v > 990], np.arange(10)]))
+    assert (np.sort(df.k.to_numpy()) == exp).all()
+
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "gpu_olap_tpu"))
+    assert not loaded, loaded
+    print("ok")
+""")
+
+
+def test_port_runs_with_the_jax_package_blocked(tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+@pytest.fixture(scope="module")
+def explain_engines():
+    port = TorchOlapEngine(EngineConfig(), device="cpu")
+    _populate(port, np.random.default_rng(123))
+    ref = make_engine("auto")
+    mirror_tables(port, ref)
+    return port, ref
+
+
+@pytest.mark.parametrize("sql", SLICE_QUERIES, ids=range(len(SLICE_QUERIES)))
+def test_explain_matches_the_jax_package(explain_engines, sql):
+    port, ref = explain_engines
+    assert port.explain(sql) == ref.explain(sql)
