@@ -15,7 +15,10 @@ Phases, each printing one JSON line:
    below the group count, negative values, the INT32_MAX sentinel group,
    an unaligned view; filter_agg: every operator, 0 to 8 value columns,
    aliased and repeated columns, unaligned views, n_valid cuts, no match,
-   ``wants`` masks, 5M rows over many blocks);
+   ``wants`` masks, 5M rows over many blocks; radix_hist: one bin over
+   four counter flushes of a full wave, every thread's counter at the flush
+   limit in all 256 bins, views at offsets 1-3 of lengths 1-7, each case
+   twice on one stream and once on a second stream);
 4. kernels_main_shapes: filter_agg and seg_agg against their plain versions
    at the bench shapes (200M rows; 100M rows x 4M groups), with both times
    and the bound;
@@ -103,12 +106,22 @@ def _card() -> str:
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
 
+#: GPU clock cycles the timing window waits behind, per call it times
+#: (about 0.1 ms each at the H100's clock)
+SLEEP_CYCLES_PER_CALL = 200_000
+
+
 def _cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` on the current stream (CUDA events)."""
+    """Mean milliseconds of ``fn()`` on the current stream (CUDA events).
+
+    The window opens behind a spin kernel long enough for the host to queue
+    every call, so the host's time to reach the first launch is not counted
+    against the device; a function that synchronizes still waits there."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -346,20 +359,38 @@ def _expand_cases(dev):
 def _radix_cases(dev):
     """(name, keys): the TPU kernel's test shapes (a length off its
     16384-key block, negative keys) plus empty, one key, one bin and the
-    int32 extremes."""
+    int32 extremes; then the packed counters' edges: one bin over four
+    flushes of every block of a full wave, every thread's counter at
+    exactly the flush limit in all 256 bins, and views at offsets 1-3 of
+    lengths 1-7 around the 16-byte vector."""
+    from gpu_olap_tpu_torch.ops.kernels import _build
+
     g = np.random.default_rng(500)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
 
     rand = g.integers(I32_MIN, I32_MAX, 100_003, endpoint=True)
-    return [("n_0", t(rand[:0])), ("n_1", t(rand[:1])),
-            ("n_16383", t(rand[:16383])), ("n_16385", t(rand[:16385])),
-            ("one_bin", t(np.full(70_001, 0x5A5A5A5A))),
-            ("negative", t(-np.abs(rand) - 1)),
-            ("extremes", t(np.concatenate([np.full(999, I32_MIN),
-                                           np.full(1001, I32_MAX), rand]))),
-            ("unaligned_view", t(rand)[3:])]
+    base = t(rand)
+    # keys a full wave counts between two flushes of every thread
+    flush_keys = _build.load().olap_radix_hist_wave_flush_keys()
+    cases = [("n_0", t(rand[:0])), ("n_1", t(rand[:1])),
+             ("n_16383", t(rand[:16383])), ("n_16385", t(rand[:16385])),
+             ("one_bin", t(np.full(70_001, 0x5A5A5A5A))),
+             ("negative", t(-np.abs(rand) - 1)),
+             ("extremes", t(np.concatenate([np.full(999, I32_MIN),
+                                            np.full(1001, I32_MAX), rand]))),
+             ("unaligned_view", base[3:]),
+             ("one_bin_four_flushes", torch.full(
+                 (flush_keys * 4 + 5,), 7, dtype=torch.int32, device=dev)),
+             # thread t of a block loads the 16-byte words j with j % 256 ==
+             # t % 256, so keys (index // 4) % 256 give each thread one bin
+             ("all_bins_at_flush_limit", (torch.arange(
+                 flush_keys * 2 + 3, device=dev) // 4 % 256).to(torch.int32))]
+    for off in (1, 2, 3):
+        cases += [(f"view_{off}_len_{n}", base[off:off + n])
+                  for n in range(1, 8)]
+    return cases
 
 
 def _check_kernels(dev):
@@ -403,19 +434,26 @@ def _check_kernels(dev):
         if err:
             raise AssertionError(f"expand_fill case {name}: max |err| {err}")
     radix_cases = _radix_cases(dev)
+    side = torch.cuda.Stream(dev)
     for name, keys in radix_cases:
         for shift in (0, 8, 16, 24, 31):
-            got = rp.radix_histogram_i32(keys, shift)
-            exp = rp.radix_histogram_plain(keys, shift)
-            err = _max_abs_err(got, exp)
+            # twice on this stream (the block counter resets), once on another
+            got = [rp.radix_histogram_i32(keys, shift),
+                   rp.radix_histogram_i32(keys, shift)]
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                got.append(rp.radix_histogram_i32(keys, shift))
             torch.cuda.synchronize()
+            exp = rp.radix_histogram_plain(keys, shift)
+            err = _max_abs_err(got, [exp] * 3)
             if err:
                 raise AssertionError(f"radix_hist case {name} shift {shift}: "
                                      f"max |err| {err}")
     _say("kernels_edge_cases", filter_agg=len(_filter_agg_cases(dev)),
          seg_agg=len(_seg_agg_cases(dev)),
          stream_compact=len(compact_cases), expand_fill=len(expand_cases),
-         radix_hist=5 * len(radix_cases), exact=True)
+         radix_hist=5 * len(radix_cases), radix_hist_calls_per_case=3,
+         exact=True)
     del compact_cases, expand_cases, radix_cases
 
     gen = torch.Generator(device=dev).manual_seed(0)

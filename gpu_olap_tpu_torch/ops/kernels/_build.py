@@ -64,8 +64,10 @@ _SIGNATURES = {
     "olap_seg_agg_scratch_bytes": ([ctypes.c_longlong], ctypes.c_longlong),
     "olap_seg_agg_i32": ([_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P,
                           _P, _P, _P, _P, _P], ctypes.c_int),
-    "olap_radix_hist_i32": ([_P, ctypes.c_longlong, ctypes.c_int, _P, _P],
-                            ctypes.c_int),
+    "olap_radix_hist_scratch_bytes": ([], ctypes.c_longlong),
+    "olap_radix_hist_wave_flush_keys": ([], ctypes.c_longlong),
+    "olap_radix_hist_i32": ([_P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P,
+                             _P], ctypes.c_int),
 }
 
 
@@ -159,6 +161,25 @@ def load():
         return _lib
 
 
+#: per (device index, stream handle): a zeroed int32 counter on the device
+_DONE = {}
+
+
+def done_counter(dev, stream):
+    """The counter that orders the blocks of a last-block kernel on
+    ``stream`` (``filter_agg``, ``radix_hist``): each block adds one when its
+    partials are written, and the block that sees ``gridDim.x - 1`` folds
+    them.  One counter serves every such kernel on the stream, so each
+    launch of each of them must leave it zero (its last block sets it back);
+    launches on one stream never overlap."""
+    import torch
+
+    key = (dev.index, stream.cuda_stream)
+    if key not in _DONE:
+        _DONE[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _DONE[key]
+
+
 def check(err: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if err != 0:
@@ -166,8 +187,9 @@ def check(err: int, what: str) -> None:
 
 
 def ptxas_report(log: str = None) -> list:
-    """Registers and spill bytes of every kernel in a ``ptxas -v`` log
-    (default: the log of the built library), one dict per kernel."""
+    """Registers, spill bytes and static shared memory of every kernel in
+    a ``ptxas -v`` log (default: the log of the built library), one dict
+    per kernel."""
     if log is None:
         log = os.path.join(os.path.dirname(library_path()), PTXAS_LOG)
     with open(log) as f:
@@ -183,6 +205,9 @@ def ptxas_report(log: str = None) -> list:
             fn["spill_stores"], fn["spill_loads"] = map(int, m.groups())
         elif fn and (m := re.search(r"Used (\d+) registers", line)):
             fn["registers"] = int(m.group(1))
+            # static shared memory only: a launch adds its dynamic bytes
+            smem = re.search(r"(\d+) bytes smem", line)
+            fn["smem_bytes"] = int(smem.group(1)) if smem else 0
             rows.append(fn)
             fn = None
     _demangle(rows)

@@ -127,20 +127,9 @@ def filter_agg_i32(filt: torch.Tensor, op: str, threshold: int, cols,
         err = lib.olap_filter_agg_i32(
             filt.data_ptr(), ptrs, k, OPS.index(op), int(threshold), n_valid,
             want_sum, want_mm, partials.data_ptr(),
-            _done_counter(dev, cur).data_ptr(), count.data_ptr(),
+            _build.done_counter(dev, cur).data_ptr(), count.data_ptr(),
             sums.data_ptr(), mins.data_ptr(), maxs.data_ptr(), cur.cuda_stream)
     _build.check(err, "filter_agg launch")
     _build.launches["filter_agg"] += 1
     return count[0], [(sums[i], mins[i], maxs[i]) for i in range(k)]
 
-
-#: per (device, stream): the zeroed counter that orders the kernel's blocks;
-#: each launch leaves it zero, and launches on one stream never overlap
-_DONE = {}
-
-
-def _done_counter(dev, stream) -> torch.Tensor:
-    key = (dev.index, stream.cuda_stream)
-    if key not in _DONE:
-        _DONE[key] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return _DONE[key]

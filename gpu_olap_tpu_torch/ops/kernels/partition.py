@@ -37,15 +37,20 @@ def radix_histogram_i32(keys: torch.Tensor, shift: int = 0) -> torch.Tensor:
         raise ValueError(f"radix_histogram has no kernel for {dev}")
     if not keys.is_contiguous():
         raise ValueError("radix_histogram takes a contiguous tensor")
-    hist = torch.zeros(BINS, dtype=torch.int64, device=dev)
     n = keys.shape[0]
     if n == 0:
-        return hist
+        return torch.zeros(BINS, dtype=torch.int64, device=dev)
     lib = _build.load()
+    # nothing is pre-filled: the kernel's last block writes all 256 counts
+    hist = torch.empty(BINS, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = torch.empty(lib.olap_radix_hist_scratch_bytes(),
+                              dtype=torch.uint8, device=dev)
+        cur = torch.cuda.current_stream(dev)
         err = lib.olap_radix_hist_i32(keys.data_ptr(), n, shift,
-                                      hist.data_ptr(), stream)
+                                      scratch.data_ptr(),
+                                      _build.done_counter(dev, cur).data_ptr(),
+                                      hist.data_ptr(), cur.cuda_stream)
     _build.check(err, "radix_hist launch")
     _build.launches["radix_hist"] += 1
     return hist

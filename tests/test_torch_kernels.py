@@ -435,15 +435,16 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path):
         "ptxas info    : Compiling entry function '_Z3fooPi' for 'sm_90a'\n"
         "ptxas info    : Function properties for _Z3fooPi\n"
         "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
-        "ptxas info    : Used 40 registers, used 1 barriers\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 1028 bytes smem,"
+        " 400 bytes cmem[0]\n"
         "== filter_agg.cu\n"
         "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 48 registers, used 1 barriers\n")
     rows = _build.ptxas_report(str(log))
-    assert [(r["source"], r["registers"], r["spill_stores"], r["spill_loads"])
-            for r in rows] == [("seg_agg.cu", 40, 8, 12),
-                               ("filter_agg.cu", 48, 0, 0)]
+    assert [(r["source"], r["registers"], r["spill_stores"], r["spill_loads"],
+             r["smem_bytes"]) for r in rows] == [
+        ("seg_agg.cu", 40, 8, 12, 1028), ("filter_agg.cu", 48, 0, 0, 0)]
 
 
 # ---------------------------------------------------------------------------
@@ -672,29 +673,66 @@ def test_expand_fill_cuda_many_streams_and_late_first_start():
 # radix_hist (B5)
 # ---------------------------------------------------------------------------
 
+def _radix_cuda_cases(dev):
+    """(name, keys on ``dev``): edge lengths, one bin, negative keys, and
+    the packed-counter kernel's own edges: one bin over four flushes of
+    every block of a full wave, every thread's counter at exactly the
+    flush limit in all 256 bins, views at offsets 1-3 of lengths 1-7."""
+    rng = np.random.default_rng(6)
+    cases = [(f"random_{n}", torch.from_numpy(
+        rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)).to(dev))
+        for n in (0, 1, 16383, 16385, 1_000_003)]
+    cases.append(("one_bin", torch.full((300_001,), 7, dtype=torch.int32,
+                                        device=dev)))
+    cases.append(("eight_bins", torch.arange(200_000, dtype=torch.int32,
+                                             device=dev) % 8))
+    # keys a full wave counts between two flushes of every thread
+    flush_keys = _build.load().olap_radix_hist_wave_flush_keys()
+    cases.append(("one_bin_four_flushes", torch.full(
+        (flush_keys * 4 + 5,), 7, dtype=torch.int32, device=dev)))
+    # thread t of a block loads the 16-byte words j with j % 256 == t % 256
+    # (blocks are whole groups of 256 threads): keys (index // 4) % 256 put
+    # all of a thread's keys in bin t % 256
+    cases.append(("all_bins_at_flush_limit", (torch.arange(
+        flush_keys * 2 + 3, device=dev) // 4 % 256).to(torch.int32)))
+    base = cases[4][1]
+    for off in (1, 2, 3):
+        cases.append((f"view_{off}", base[off:]))
+        cases += [(f"view_{off}_len_{n}", base[off:off + n])
+                  for n in range(1, 8)]
+    return cases
+
+
 @pytest.mark.cuda
 def test_cuda_radix_histogram_matches_plain():
-    """The CUDA kernel against its plain version, exactly: edge lengths,
-    one bin, negative keys, every shift the edge cases use.  (The plain
-    version against the Pallas kernel: ``test_torch_parallel.py``.)"""
+    """The CUDA kernel against its plain version, exactly, at every shift
+    the edge cases use: each case twice on the current stream (the block
+    counter resets) and once on a second stream.  (The plain version
+    against the Pallas kernel: ``test_torch_parallel.py``.)"""
     from gpu_olap_tpu_torch.ops.kernels import partition as tpart
     from gpu_olap_tpu_torch.parallel import skew as tskew
 
     dev = _cuda_device()
-    rng = np.random.default_rng(6)
-    cases = [rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
-             for n in (0, 1, 16383, 16385, 1_000_003)]
-    cases.append(np.full(300_001, 7, np.int32))
-    cases.append(np.arange(200_000, dtype=np.int32) % 8)
+    cases = _radix_cuda_cases(dev)
+    side = torch.cuda.Stream(dev)
     before = _build.launches["radix_hist"]
-    for keys in cases:
-        k = torch.from_numpy(keys).to(dev)
+    for name, k in cases:
         for shift in (0, 8, 16, 24, 31):
-            got = tpart.radix_histogram_i32(k, shift)
-            torch.testing.assert_close(got.cpu(), tpart.radix_histogram_plain(
-                k, shift).cpu(), rtol=0, atol=0)
-    assert _build.launches["radix_hist"] - before == 5 * (len(cases) - 1)
+            exp = tpart.radix_histogram_plain(k, shift).cpu()
+            got = [tpart.radix_histogram_i32(k, shift),
+                   tpart.radix_histogram_i32(k, shift)]
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                got.append(tpart.radix_histogram_i32(k, shift))
+            torch.cuda.synchronize()
+            for g in got:
+                torch.testing.assert_close(g.cpu(), exp, rtol=0, atol=0,
+                                           msg=f"{name} shift {shift}")
+    # an empty input launches nothing
+    launched = 3 * 5 * (len(cases) - 1)
+    assert _build.launches["radix_hist"] - before == launched
+    rng = np.random.default_rng(7)
     hist = tskew.partition_histogram(torch.from_numpy(
         rng.integers(0, 1 << 40, 100_000)).to(dev), 8)
-    assert _build.launches["radix_hist"] - before == 5 * (len(cases) - 1) + 1
+    assert _build.launches["radix_hist"] - before == launched + 1
     assert int(hist.sum()) == 100_000
