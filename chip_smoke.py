@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py      # about 2.5 to 3 minutes on one H100
+    python3 chip_smoke.py      # about 10 minutes on one H100
 
 Phases, each printing one JSON line:
 
@@ -48,7 +48,20 @@ Phases, each printing one JSON line:
     CPU oracle, then a config-5 SQL join + GROUP BY on 8M rows per side
     (uniform, then Zipf keys on the skew-broadcast route), exact against
     numpy;
-12. standalone: neither JAX nor any module of ``gpu_olap_tpu`` was loaded.
+12. engine_streaming, one line per query: out-of-core execution through
+    ``TorchOlapEngine(device="cuda")`` from Parquet files written to a
+    temporary directory (removed at the end): bench.py's 1B-row table
+    (``k`` in [0, 4M), ``v`` in [0, 1M), seed 42) and its GROUP BY into 4M
+    groups, twice, on the hash-partitioned streamed state; a streamed join
+    of those rows against a cached 4M-row dimension table; a grace join of
+    two 20M-row files through spill partitions; a COUNT(DISTINCT) that
+    cannot stream and loads its table whole.  Each is exact against numpy
+    on its backend label; each line gives the wall, rows/s, the streamer's
+    chunks, host-to-device bytes and rate, stream seconds, host split
+    seconds, summed step intervals on the device (CUDA events read once;
+    an upper bound on its busy time), peak device bytes and the five
+    kernels' launches;
+13. standalone: neither JAX nor any module of ``gpu_olap_tpu`` was loaded.
 
 The eight shards on one card measure the distributed code path, not
 scaling.  The line before the last is a JSON object with one entry per
@@ -93,6 +106,13 @@ DIST_REPS = 5
 DIST_CORPUS_ROWS = 1 << 20
 DIST_JOIN_ROWS = 1 << 23
 RADIX_ROWS = 200_000_000
+# out-of-core: bench.py's 1B-row GROUP BY table (bench.py:211-240), written
+# in pieces; the grace join's two tables, each above the 10M-row default
+# cache threshold
+STREAM_ROWS = 1_000_000_000
+STREAM_GROUPS = 4_000_000
+STREAM_PIECE = 50_000_000
+GRACE_ROWS = 20_000_000
 
 
 def _say(phase: str, **kv) -> None:
@@ -1256,6 +1276,223 @@ def _run_engine_distributed(dev, card: str):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# out-of-core execution: Parquet tables above the cache threshold
+# ---------------------------------------------------------------------------
+
+KERNELS = ("filter_agg", "seg_agg", "stream_compact", "expand_fill",
+           "radix_hist")
+
+
+def _write_fact(path: str, dev):
+    """bench.py's 1B-row table (``bench_groupby_1b``): ``k`` uniform in
+    [0, STREAM_GROUPS), ``v`` uniform in [0, 1M), seed 42, written in
+    STREAM_PIECE-row pieces.  The expected per-key COUNT and SUM accumulate
+    with ``np.bincount`` and MIN and MAX with ``scatter_reduce_`` on
+    ``dev``, piece by piece (neither shares code with the port's sort-based
+    path).  Returns (count, sum, min, max, rng): the generator goes on to
+    make the dimension table.  Each piece is written on a thread of its
+    own while the next is made and counted (the writer releases the
+    interpreter lock)."""
+    rows = STREAM_ROWS
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    g = STREAM_GROUPS
+    rng = np.random.default_rng(42)
+    cnt = np.zeros(g, dtype=np.int64)
+    tot = np.zeros(g, dtype=np.int64)
+    mn = torch.full((g,), 1 << 40, dtype=torch.int64, device=dev)
+    mx = torch.full((g,), -1, dtype=torch.int64, device=dev)
+    writer = None
+    try:
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            writing = None
+            for lo in range(0, rows, STREAM_PIECE):
+                m = min(STREAM_PIECE, rows - lo)
+                k = rng.integers(0, g, m)
+                v = rng.integers(0, 1_000_000, m)
+                t = pa.table({"k": k, "v": v})
+                if writer is None:
+                    writer = pq.ParquetWriter(path, t.schema)
+                if writing is not None:
+                    writing.result()  # pieces go to the file in order
+                writing = pool.submit(writer.write_table, t)
+                cnt += np.bincount(k, minlength=g)
+                # a piece's per-key sum stays below 2^53: exact in float64
+                tot += np.bincount(k, weights=v, minlength=g).astype(np.int64)
+                kt = torch.from_numpy(k).to(dev)
+                vt = torch.from_numpy(v).to(dev)
+                mn.scatter_reduce_(0, kt, vt, "amin")
+                mx.scatter_reduce_(0, kt, vt, "amax")
+                del k, v, t, kt, vt
+            if writing is not None:
+                writing.result()
+    finally:
+        if writer is not None:
+            writer.close()
+    return cnt, tot, mn.cpu().numpy(), mx.cpu().numpy(), rng
+
+
+def _write_grace(d: str):
+    """Two GRACE_ROWS-row tables for the grace join: ``a(k, g, x)`` and
+    ``b(k, y)``, keys uniform in [0, rows) (about one match per row), group
+    ids in [0, 1000), values in [0, 1000).  Returns the paths and the
+    arrays."""
+    rows = GRACE_ROWS
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(43)
+    a = {"k": rng.integers(0, rows, rows), "g": rng.integers(0, 1000, rows),
+         "x": rng.integers(0, 1000, rows)}
+    b = {"k": rng.integers(0, rows, rows), "y": rng.integers(0, 1000, rows)}
+    paths = {}
+    for name, cols in (("a", a), ("b", b)):
+        paths[name] = f"{d}/{name}.parquet"
+        pq.write_table(pa.table(cols), paths[name])
+    return paths, a, b
+
+
+def _streamed(eng, sql: str, rows: int, backend: str):
+    """One run of ``sql`` on ``backend``: the result and its line — wall
+    and rows/s, the streamer's chunks, hash parts, host-to-device bytes and
+    their rate over the stream, its stream seconds, host split seconds and
+    summed step intervals on the device, peak device bytes and each
+    kernel's launches."""
+    from gpu_olap_tpu_torch.ops.kernels import _build
+
+    _build.launches.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = eng.query(sql)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if res.metrics["backend"] != backend:
+        raise AssertionError(f"{sql}: backend {res.metrics['backend']}, "
+                             f"not {backend}")
+    sa = eng._get_device_executor()._streaming
+    stream_s = sa.last_stream_seconds
+    return res, {
+        "sql": sql, "backend": backend, "routes": res.metrics["routes"],
+        "rows": rows, "wall_s": wall, "rows_per_s": rows / wall,
+        "chunks": sa.last_stream_chunks, "hash_parts": sa.last_hash_parts,
+        "h2d_bytes": sa.last_link_bytes,
+        "h2d_gb_per_s": sa.last_link_bytes / stream_s / 1e9 if stream_s
+        else None,
+        "stream_s": stream_s, "host_split_s": sa.last_split_seconds,
+        "step_interval_s": sa.last_step_interval_seconds,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "launches": {k: _build.launches.get(k, 0) for k in KERNELS}}
+
+
+def _run_streaming(dev, card: str) -> None:
+    """Out-of-core execution through ``TorchOlapEngine``: Parquet tables
+    above the cache threshold, one line per query, each exact against
+    numpy on the backend the JAX engine takes for it."""
+    import shutil
+    import tempfile
+
+    from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+
+    rows, grace_rows = STREAM_ROWS, GRACE_ROWS
+    d = tempfile.mkdtemp(prefix="olap_stream_")
+    try:
+        t0 = time.perf_counter()
+        cnt, tot, mn, mx, rng = _write_fact(f"{d}/t.parquet", dev)
+        w = rng.integers(0, 1_000_000, STREAM_GROUPS)
+        paths, a, b = _write_grace(d)
+        write_s = time.perf_counter() - t0
+        # bench.py's setting for the 1B GROUP BY (bench.py:241): the state
+        # of 4M groups takes the hash-partitioned route
+        eng = TorchOlapEngine(EngineConfig(
+            max_groups=1 << 26, enable_cache=False, spill_dir=f"{d}/spill"),
+            device=dev)
+        eng.load_table("t", f"{d}/t.parquet")
+        for name, path in paths.items():
+            eng.load_table(name, path)
+        if any(eng.catalog.is_cached(n) for n in ("t", "a", "b")):
+            raise AssertionError("a streamed table was cached")
+        eng.register("d", {"k": np.arange(STREAM_GROUPS, dtype=np.int64),
+                           "w": w})
+        common = {"card": card, "reduced": False,
+                  "data_write_seconds": write_s}
+
+        # 1. GROUP BY 1B rows into 4M groups, twice: the second run reuses
+        # the staging arena's buffers
+        sql = ("SELECT k, SUM(v) AS s, MIN(v) AS mn, MAX(v) AS mx FROM t "
+               "GROUP BY k")
+        keys = np.flatnonzero(cnt)
+        exec_ = eng._get_device_executor()
+        for run in (1, 2):
+            res, line = _streamed(eng, sql, rows, "torch-streaming")
+            out = res.to_pandas().sort_values("k")
+            _exact(f"{sql} (run {run})",
+                   {c: out[c].to_numpy() for c in out.columns},
+                   {"k": keys, "s": tot[keys], "mn": mn[keys],
+                    "mx": mx[keys]})
+            del res, out
+            arena = exec_._streaming_arena_stats()
+            if run == 1:
+                first_arena = arena
+            elif arena != first_arena:
+                raise AssertionError(f"the arena grew: {first_arena} -> "
+                                     f"{arena}")
+            # a tenth of the table's 16 B/row in device memory at most
+            peak = line["peak_device_bytes"]
+            if peak * 10 >= rows * 16:
+                raise AssertionError(f"peak device bytes {peak} reach a "
+                                     "tenth of the table's")
+            _say("engine_streaming", query=f"groupby run {run}",
+                 groups=int(len(keys)), arena=arena, **common, **line,
+                 exact=True)
+
+        # 2. the streamed join against the cached 4M-row dimension table
+        sql = ("SELECT COUNT(*) AS n, SUM(t.v + d.w) AS s FROM t "
+               "JOIN d ON t.k = d.k")
+        res, line = _streamed(eng, sql, rows, "torch-streaming")
+        _exact(sql, res.to_pydict(), {
+            "n": [rows], "s": [int(tot.sum() + (cnt * w).sum())]})
+        _say("engine_streaming", query="join cached dimension", **common,
+             **line, exact=True)
+        del cnt, tot, mn, mx, w, keys
+
+        # 3. the grace join: both sides above the cache threshold
+        sql = ("SELECT a.g, COUNT(*) AS n, SUM(a.x + b.y) AS s FROM a "
+               "JOIN b ON a.k = b.k GROUP BY a.g")
+        res, line = _streamed(eng, sql, 2 * grace_rows,
+                              "torch-streaming-partitioned")
+        nb = np.bincount(b["k"], minlength=grace_rows)
+        yb = np.bincount(b["k"], weights=b["y"], minlength=grace_rows)
+        m = nb[a["k"]]
+        n_g = np.bincount(a["g"], weights=m, minlength=1000).astype(np.int64)
+        s_g = np.bincount(a["g"], weights=a["x"] * m + yb[a["k"]],
+                          minlength=1000).astype(np.int64)
+        groups = np.flatnonzero(n_g)
+        out = res.to_pandas().sort_values("g")
+        _exact(sql, {c: out[c].to_numpy() for c in out.columns},
+               {"g": groups, "n": n_g[groups], "s": s_g[groups]})
+        _say("engine_streaming", query="grace join", matches=int(m.sum()),
+             spill_partitions=exec_._streaming.last_spill_partitions,
+             **common, **line, exact=True)
+        del nb, yb, m, res, out
+
+        # 4. COUNT(DISTINCT) does not merge across chunks: the table loads
+        # whole onto the device
+        sql = "SELECT COUNT(DISTINCT k) AS n FROM a"
+        res, line = _streamed(eng, sql, grace_rows, "torch-cuda")
+        _exact(sql, res.to_pydict(), {"n": [len(np.unique(a["k"]))]})
+        _say("engine_streaming", query="not streamable: full load",
+             **common, **line, exact=True)
+        del eng, res, a, b
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1285,6 +1522,7 @@ def main() -> int:
     kern.update(_check_dist_kernels(dev, lk))
     del lk
     _run_engine_distributed(dev, card)
+    _run_streaming(dev, card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     loaded = sorted(m for m in sys.modules

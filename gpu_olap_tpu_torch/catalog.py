@@ -16,10 +16,10 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 from .interop import arrow as arrow_io
-from .interop.columnar import ColumnBatch, Schema
+from .interop.columnar import Column, ColumnBatch, Schema
 from .utils.tracing import get_logger
 
 logger = get_logger(__name__)
@@ -56,6 +56,10 @@ class Catalog:
 
     def get_version(self, name: str) -> int:
         return self._versions.get(name, 0)
+
+    @property
+    def cache_threshold(self) -> int:
+        return self._cache_threshold
 
     # -- registration ------------------------------------------------------
     def load_table(self, name: str, path: str) -> None:
@@ -114,6 +118,31 @@ class Catalog:
             return meta.data_cache
         assert meta.location is not None
         return arrow_io.read_parquet(meta.location)
+
+    def iter_table_chunks(self, name: str, batch_size: int,
+                          columns: Optional[List[str]] = None) -> Iterator[ColumnBatch]:
+        """Streamed chunked scan for out-of-core execution."""
+        meta = self._meta(name)
+        if meta.location is not None and meta.data_cache is None:
+            yield from arrow_io.iter_parquet_chunks(meta.location, batch_size, columns)
+            return
+        batch = meta.data_cache
+        if columns is not None:
+            batch = batch.select([batch.schema.index_of(c) for c in columns])
+        for start in range(0, max(batch.num_rows, 1), batch_size):
+            stop = min(start + batch_size, batch.num_rows)
+            if start >= batch.num_rows and start > 0:
+                break
+            cols = []
+            for c in batch.columns:
+                v = None if c.validity is None else c.validity[start:stop]
+                cols.append(Column(c.data[start:stop], v, c.dictionary))
+            yield ColumnBatch(batch.schema, cols, stop - start)
+            if stop >= batch.num_rows:
+                break
+
+    def get_table_location(self, name: str) -> Optional[str]:
+        return self._meta(name).location
 
     def get_stats(self, name: str) -> Optional[dict]:
         return self._meta(name).stats

@@ -9,9 +9,13 @@ locks) and the torch executors in place of the JAX ones.
 With ``config.mesh_shape[0] > 1`` a distributable plan runs on the
 ``DistributedExecutor`` over a mesh of explicit devices
 (``metrics["backend"] == "torch-distributed"``); any other plan runs on the
-single-device torch executor (``torch-cuda`` or ``torch-cpu``).  Plans the
-torch path does not cover (cross joins, out-of-core tables) run on the CPU
-oracle and say so in ``metrics["backend"] == "cpu-fallback"``.
+single-device torch executor (``torch-cuda`` or ``torch-cpu``).  A plan
+over an uncached (out-of-core) Parquet table streams its chunks through the
+device (``torch-streaming``; ``torch-streaming-partitioned`` for the grace
+join of two uncached tables), or, when the streamer cannot take it, loads
+the table whole onto the device (``torch-cuda`` / ``torch-cpu``).  Only
+plans the torch path does not cover (cross joins) run on the CPU oracle and
+say so in ``metrics["backend"] == "cpu-fallback"``.
 ``metrics["routes"]`` names the device routes the query took: the
 ``torch_*`` counters of ``GLOBAL_METRICS`` that its execution bumped.
 """

@@ -278,16 +278,9 @@ class CpuExecutor:
         for i, f in enumerate(plan.schema):
             parts = [b.columns[i] for b in batches]
             if f.dtype is DType.STRING:
-                from ..interop.columnar import dict_encode_strings
-
-                dec = np.concatenate([
-                    np.asarray(c.dictionary, dtype=object)[
-                        np.clip(np.asarray(c.data), 0, len(c.dictionary) - 1)]
-                    for c in parts
-                ])
-                codes, dictionary, _ = dict_encode_strings(dec)
-                valid = _concat_validity(parts)
-                cols.append(Column(codes, valid, dictionary))
+                datas, dictionary = _onto_union(parts)
+                cols.append(Column(np.concatenate(datas),
+                                   _concat_validity(parts), dictionary))
                 continue
             data = np.concatenate([
                 np.asarray(c.data).astype(f.dtype.numpy_dtype) for c in parts
@@ -403,24 +396,29 @@ class CpuExecutor:
 
     def _eval_case(self, e: P.PhysCase, batch: ColumnBatch) -> Column:
         n = batch.num_rows
-        out = None
         out_valid = np.zeros(n, dtype=bool)
         decided = np.zeros(n, dtype=bool)
         out_np = e.dtype.numpy_dtype
         result = np.zeros(n, dtype=out_np)
-        for cond, val in e.branches:
-            c = self.eval_expr(cond, batch)
+        conds = [self.eval_expr(cond, batch) for cond, _ in e.branches]
+        values = [self.eval_expr(val, batch) for _, val in e.branches]
+        if e.default is not None:
+            values.append(self.eval_expr(e.default, batch))
+        dictionary = None
+        if e.dtype is DType.STRING:
+            # each string branch carries its own dictionary
+            datas, dictionary = _onto_union(values)
+        else:
+            datas = [np.asarray(v.data) for v in values]
+        for c, v, d in zip(conds, values, datas):
             cmask = np.asarray(c.data, dtype=bool) & _valid_of(c) & ~decided
-            v = self.eval_expr(val, batch)
-            result = np.where(cmask, np.asarray(v.data).astype(out_np), result)
+            result = np.where(cmask, d.astype(out_np), result)
             out_valid = np.where(cmask, _valid_of(v), out_valid)
             decided |= cmask
         if e.default is not None:
-            v = self.eval_expr(e.default, batch)
-            result = np.where(~decided, np.asarray(v.data).astype(out_np), result)
-            out_valid = np.where(~decided, _valid_of(v), out_valid)
-            decided |= np.ones(n, dtype=bool)
-        return Column(result, _maybe_validity(out_valid))
+            result = np.where(~decided, datas[-1].astype(out_np), result)
+            out_valid = np.where(~decided, _valid_of(values[-1]), out_valid)
+        return Column(result, _maybe_validity(out_valid), dictionary)
 
     def _eval_func(self, e: P.PhysFunc, batch: ColumnBatch) -> Column:
         if e.func == "date_part":
@@ -516,6 +514,25 @@ def _gather_with_null(col: Column, idx: np.ndarray, is_pad: np.ndarray) -> Colum
     data = np.asarray(col.data)[safe]
     valid = _valid_of(col)[safe] & ~is_pad
     return Column(data, _maybe_validity(valid), col.dictionary)
+
+
+def _onto_union(cols: List[Column]):
+    """String columns re-coded onto the sorted union of their dictionaries:
+    (code arrays, union dictionary).  A column without a dictionary (a NULL
+    literal) keeps its codes; its rows are invalid."""
+    dicts = [np.asarray(c.dictionary, dtype=str) for c in cols
+             if c.dictionary is not None]
+    if not dicts:
+        return [np.asarray(c.data) for c in cols], None
+    union = np.unique(np.concatenate(dicts))
+    out = []
+    for c in cols:
+        data = np.asarray(c.data)
+        if c.dictionary is not None and len(c.dictionary):
+            lut = np.searchsorted(union, np.asarray(c.dictionary, dtype=str))
+            data = lut[np.clip(data, 0, len(lut) - 1)]
+        out.append(data)
+    return out, union.astype(object)
 
 
 def _broadcast_literal(e: P.PhysLiteral, n: int) -> Column:

@@ -27,8 +27,14 @@ UNION ALL concatenates its children on the device, as JAX does.
 What it drops, because it served XLA's static shapes or the TPU: the
 shape-bucket padding of tables (tables keep their row count), the int32
 narrowing of results for the host link, and int32 arithmetic on
-interval-proven expressions.  Cross joins and out-of-core scans raise
-:class:`DeviceUnsupported`, and the engine answers them on the CPU oracle.
+interval-proven expressions.  Cross joins raise :class:`DeviceUnsupported`,
+and the engine answers them on the CPU oracle.
+
+A plan that scans an uncached (out-of-core) table streams through
+:mod:`.streaming` (``last_backend`` ``torch-streaming``, or
+``torch-streaming-partitioned`` for the grace join); a plan the streamer
+cannot take (``NotStreamable``) loads the table whole onto the device, as
+the JAX executor does.
 """
 
 from __future__ import annotations
@@ -208,14 +214,34 @@ class DeviceExecutor:
         self._table_cache: Dict[str, tuple] = {}
         # per-plan-node capacity overrides after overflow (node path -> rows)
         self._cap_override: Dict[tuple, int] = {}
+        # out-of-core streamer, kept across queries so that its staging
+        # arena pools chunk buffers
+        self._streaming = None
         self.last_backend = f"torch-{device.type}"
 
     # ------------------------------------------------------------------
     # public entry
     # ------------------------------------------------------------------
     def execute(self, plan: P.PhysicalPlan) -> ColumnBatch:
+        # the route this call took, for QueryResult.metrics["backend"]
+        self.last_backend = f"torch-{self.device.type}"
         if self._has_uncached_scan(plan):
-            raise DeviceUnsupported("out-of-core scan (streaming is not ported)")
+            # out-of-core: stream chunks through a partial-aggregate pipeline
+            from .streaming import NotStreamable, StreamingAggregator
+
+            try:
+                if self._streaming is None:
+                    self._streaming = StreamingAggregator(
+                        self.catalog, self.config, _Interpreter, self.device)
+                batch = self._streaming.execute(plan)
+                self.last_backend = ("torch-streaming-partitioned"
+                                     if self._streaming.last_partitioned
+                                     else "torch-streaming")
+                return batch
+            except NotStreamable as e:
+                logger.warning(
+                    "plan not streamable (%s); loading the table whole onto "
+                    "the device", e)
         tables = self._device_tables(plan)
         rows_in = sum(t["num_rows"] for t in tables.values())
         bytes_in = sum(
@@ -254,6 +280,13 @@ class DeviceExecutor:
                                key, cur, grown)
         raise RuntimeError(
             "join/aggregate capacity kept overflowing after 8 growths")
+
+    def _streaming_arena_stats(self) -> dict:
+        """Staging-arena pool state of the out-of-core streamer (empty when
+        no query has streamed)."""
+        if self._streaming is None:
+            return {"allocated_bytes": 0, "classes": {}}
+        return self._streaming.arena.stats()
 
     def _has_uncached_scan(self, plan: P.PhysicalPlan) -> bool:
         if isinstance(plan, P.TpuTableScan) and \
@@ -425,15 +458,9 @@ class _Interpreter:
         for i, f in enumerate(plan.schema):
             parts = [b.cols[i] for b in batches]
             if f.dtype is DType.STRING:
-                dicts = [np.asarray(c.dictionary, dtype=str) for c in parts]
-                union = np.unique(np.concatenate(dicts))
-                datas = []
-                for c, d in zip(parts, dicts):
-                    lut = torch.as_tensor(np.searchsorted(union, d),
-                                          device=self.device)
-                    datas.append(lut[torch.clamp(c.data, 0, len(d) - 1)])
+                datas, dictionary = _onto_union(
+                    [(c.data, c.dictionary) for c in parts], self.device)
                 data = torch.cat(datas)
-                dictionary = union.astype(object)
             else:
                 common = parts[0].data.dtype
                 for c in parts[1:]:
@@ -802,8 +829,9 @@ class _Interpreter:
         for lk, rk, le, re_ in zip(lkeys, rkeys, plan.left_keys,
                                    plan.right_keys):
             if le.dtype is DType.STRING or re_.dtype is DType.STRING:
-                lc, rc = _align_string_codes(lk["code"], lk["dict"],
-                                             rk["code"], rk["dict"])
+                (lc, rc), _ = _onto_union([(lk["code"], lk["dict"]),
+                                           (rk["code"], rk["dict"])],
+                                          lk["code"].device)
                 lk, rk = dict(lk, code=lc), dict(rk, code=rc)
             lout.append((lk["code"], lk["null"]))
             rout.append((rk["code"], rk["null"]))
@@ -1827,7 +1855,7 @@ class _Interpreter:
         if e.left.dtype is DType.STRING or e.right.dtype is DType.STRING:
             if e.op == "||":
                 raise DeviceUnsupported("string concatenation on device")
-            ld, rd = _align_string_codes(ld, ldict, rd, rdict)
+            (ld, rd), _ = _onto_union([(ld, ldict), (rd, rdict)], self.device)
             return _cmp(e.op, ld, rd), valid, None
 
         if e.op in ("=", "!=", "<", "<=", ">", ">="):
@@ -1887,22 +1915,30 @@ class _Interpreter:
         result = torch.zeros(n, dtype=out, device=self.device)
         out_valid = torch.zeros(n, dtype=torch.bool, device=self.device)
         decided = torch.zeros(n, dtype=torch.bool, device=self.device)
-        for cond, val in e.branches:
-            cd, cv, _ = self.eval_expr(cond, batch)
+        conds = [self.eval_expr(cond, batch) for cond, _ in e.branches]
+        values = [self.eval_expr(val, batch) for _, val in e.branches]
+        if e.default is not None:
+            values.append(self.eval_expr(e.default, batch))
+        dictionary = None
+        if e.dtype is DType.STRING:
+            # each string branch carries its own dictionary
+            datas, dictionary = _onto_union(
+                [(vd, d) for vd, _, d in values], self.device)
+            values = [(vd, vv, d) for vd, (_, vv, d) in zip(datas, values)]
+        for (cd, cv, _), (vd, vv, _) in zip(conds, values):
             cmask = cd.to(torch.bool) & (~decided)
             if cv is not None:
                 cmask = cmask & cv
-            vd, vv, _ = self.eval_expr(val, batch)
             result = torch.where(cmask, vd.to(out), result)
             out_valid = torch.where(cmask, self._ones(n) if vv is None else vv,
                                     out_valid)
             decided = decided | cmask
         if e.default is not None:
-            vd, vv, _ = self.eval_expr(e.default, batch)
+            vd, vv, _ = values[-1]
             result = torch.where(decided, result, vd.to(out))
             out_valid = torch.where(decided, out_valid,
                                     self._ones(n) if vv is None else vv)
-        return result, out_valid, None
+        return result, out_valid, dictionary
 
     def _func(self, e: P.PhysFunc, batch: DevBatch):
         if e.func == "date_part":
@@ -1973,19 +2009,25 @@ def _cmp(op, ld, rd):
             "<=": torch.le, ">": torch.gt, ">=": torch.ge}[op](ld, rd)
 
 
-def _align_string_codes(ld, ldict, rd, rdict):
-    """Remap two string-code columns into a shared sorted dictionary space."""
-    if _dicts_equal(ldict, rdict):
-        return ld, rd
-    union = np.unique(np.concatenate([
-        np.asarray(ldict, dtype=str), np.asarray(rdict, dtype=str)
-    ]))
-    lmap = torch.as_tensor(np.searchsorted(union, np.asarray(ldict, dtype=str)),
-                           device=ld.device)
-    rmap = torch.as_tensor(np.searchsorted(union, np.asarray(rdict, dtype=str)),
-                           device=rd.device)
-    return (lmap[torch.clamp(ld, 0, len(lmap) - 1)],
-            rmap[torch.clamp(rd, 0, len(rmap) - 1)])
+def _onto_union(cols, device):
+    """String code columns, given as (codes, dictionary) pairs, re-coded onto
+    the sorted union of their dictionaries: (code tensors, dictionary).  A
+    column without a dictionary, or with an empty one (a NULL literal), keeps
+    its codes; its rows are invalid.  Columns that share one dictionary keep
+    their codes and that dictionary."""
+    first = cols[0][1]
+    if all(_dicts_equal(d, first) for _, d in cols[1:]):
+        return [c for c, _ in cols], first
+    union = np.unique(np.concatenate([np.asarray(d, dtype=str)
+                                      for _, d in cols if d is not None]))
+    out = []
+    for codes, d in cols:
+        if d is not None and len(d):
+            lut = torch.as_tensor(
+                np.searchsorted(union, np.asarray(d, dtype=str)), device=device)
+            codes = lut[torch.clamp(codes, 0, len(d) - 1)]
+        out.append(codes)
+    return out, union.astype(object)
 
 
 def _gather_col(c: DevCol, idx, out_valid) -> DevCol:

@@ -219,3 +219,10 @@ def read_parquet(path: str, columns=None) -> ColumnBatch:
     return batch_from_arrow(table)
 
 
+def iter_parquet_chunks(path: str, batch_size: int, columns=None):
+    """Streamed chunked scan for out-of-core execution (catalog.rs streaming role)."""
+    import pyarrow.parquet as pq
+
+    pf = pq.ParquetFile(path)
+    for record_batch in pf.iter_batches(batch_size=batch_size, columns=columns):
+        yield batch_from_arrow(pa.Table.from_batches([record_batch]))

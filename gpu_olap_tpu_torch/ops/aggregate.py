@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.metrics import GLOBAL_METRICS
-from .dtypes import INT64_MAX, INT64_MIN, key_code, key_fill, torch_dtype
+from .dtypes import key_code, key_fill, torch_dtype
 from .sort import lexsort
 
 
@@ -510,7 +510,9 @@ def _agg_one_fallback(spec, perm, gid, in_prefix, starts, ends, n,
     if acc.is_floating_point:
         ident = float("inf") if func == "min" else float("-inf")
     else:
-        ident = INT64_MAX if func == "min" else INT64_MIN
+        # the accumulator's own bounds: MIN/MAX lanes may be int32
+        ident = (torch.iinfo(acc).max if func == "min"
+                 else torch.iinfo(acc).min)
     masked = torch.where(v_valid, vals.to(acc),
                          torch.tensor(ident, dtype=acc, device=vals.device))
     red = torch.full((max_groups + 1,), ident, dtype=acc, device=vals.device)
@@ -642,7 +644,8 @@ def _global_aggregate(aggs, row_valid, n, device):
             if acc.is_floating_point:
                 ident = float("inf") if func == "min" else float("-inf")
             else:
-                ident = INT64_MAX if func == "min" else INT64_MIN
+                ident = (torch.iinfo(acc).max if func == "min"
+                         else torch.iinfo(acc).min)
             masked = torch.where(v_valid, values.to(acc),
                                  torch.tensor(ident, dtype=acc, device=device))
             red = masked.amin() if func == "min" else masked.amax()

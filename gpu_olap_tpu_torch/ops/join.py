@@ -272,6 +272,43 @@ def expand_matches(cnt, lo, sorted_rows, capacity: int):
     return pidx.to(torch.int32), brow, out_valid, total, overflow
 
 
+def probe_counts(sorted_keys, n_build_valid, probe_code, probe_invalid):
+    """Binary-search probe against :func:`build_sorted`'s keys: per probe
+    row, the start ``lo`` of its match range and the match count.  The
+    streamed join probes each chunk so against its resident build side.
+    Returns (lo, cnt), int64."""
+    nbv = torch.as_tensor(n_build_valid, dtype=torch.int64,
+                          device=sorted_keys.device)
+    code = probe_code.to(sorted_keys.dtype)
+    lo = torch.minimum(torch.searchsorted(sorted_keys, code, side="left"), nbv)
+    hi = torch.minimum(torch.searchsorted(sorted_keys, code, side="right"), nbv)
+    cnt = torch.where(probe_invalid, 0, hi - lo)
+    return lo, cnt
+
+
+def direct_probe(sorted_keys, n_build_valid, kmin: int, kmax: int,
+                 probe_code, probe_invalid):
+    """Direct-address probe: zone-map statistics bound the build keys to
+    [kmin, kmax], so every key's match-range start is precomputed into a
+    dense offset table and a probe is two gathers instead of a binary
+    search (the exact, collision-free counterpart of the reference's
+    hash-table probe, ``join_kernels.cuh:115-166``).  ``kmin``/``kmax`` are
+    host bounds.  Returns (lo, cnt), int64, as :func:`probe_counts`."""
+    dev = sorted_keys.device
+    span = int(kmax) - int(kmin) + 1
+    nbv = torch.as_tensor(n_build_valid, dtype=torch.int64, device=dev)
+    iota = (torch.arange(span + 1, dtype=torch.int64, device=dev)
+            + int(kmin)).to(sorted_keys.dtype)
+    lo_tab = torch.minimum(
+        torch.searchsorted(sorted_keys, iota, side="left"), nbv)
+    rel = probe_code.to(torch.int64) - int(kmin)
+    in_range = (rel >= 0) & (rel < span) & ~probe_invalid
+    rel_c = torch.clamp(rel, 0, span - 1)
+    lo = lo_tab[rel_c]
+    cnt = torch.where(in_range, lo_tab[rel_c + 1] - lo, 0)
+    return lo, cnt
+
+
 def dense_probe(kmin: int, kmax: int, probe_code, probe_invalid):
     """Slot positions and in-range flags for probing dense [kmin, kmax]
     tables.  Range-tests BEFORE subtracting, so no intermediate overflows."""

@@ -583,3 +583,26 @@ def test_chip_scripts_name_no_jax_package_module(script):
     top = {n.split(".")[0] for n in names}
     assert "gpu_olap_tpu_torch" in top
     assert not top & {"gpu_olap_tpu", "jax", "jaxlib"}, sorted(names)
+
+
+def test_string_case_groups_where_jax_raises():
+    """GROUP BY a string-valued CASE: each string literal is code 0 of its
+    own one-entry dictionary, and the JAX package's evaluators merge those
+    codes without their dictionaries (one group, then an IndexError when the
+    result is read).  The port's evaluators re-code the branches onto the
+    union of their dictionaries."""
+    v = np.array([-1, 5, 7, -2])
+    case = "CASE WHEN v > 0 THEN 'p' ELSE 'n' END"
+    sql = f"SELECT {case} AS sg, COUNT(*) AS c FROM t GROUP BY {case}"
+    for backend, label in (("auto", "torch-cpu"), ("cpu", "cpu")):
+        port = _port(backend=backend)
+        port.register("t", {"v": v})
+        res = port.query(sql)
+        assert res.metrics["backend"] == label
+        got = res.to_pydict()
+        assert dict(zip(got["sg"], got["c"])) == {"p": 2, "n": 2}
+    for backend in ("device", "cpu"):
+        jax_eng = make_engine(backend)
+        jax_eng.register("t", {"v": v})
+        with pytest.raises(IndexError):
+            jax_eng.query(sql).to_pydict()

@@ -97,6 +97,40 @@ def _probe_inputs(branch, seed):
     return bc, bn | ~bv, pc, pn | ~pv, fold
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_probe_counts_matches_jax(dtype):
+    """The streamed join's binary-search probe: probe keys below, inside
+    and above the build range, nulls and invalid rows on both sides."""
+    rng = np.random.default_rng(21)
+    bc, bn, bv = _side(rng, 600, -40, 50, dtype)
+    pc, pn, pv = _side(rng, 900, -60, 70, dtype)
+    bsk = jj.build_sorted(_j(bc), _j(bn | ~bv))
+    tsk = tj.build_sorted(_t(bc), _t(bn | ~bv))
+    exp = jj.probe_counts(bsk[0], bsk[2], _j(pc), _j(pn | ~pv))
+    got = tj.probe_counts(tsk[0], tsk[2], _t(pc), _t(pn | ~pv))
+    for g, e in zip(got, exp):
+        _eq(g, e)
+    assert int(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("bounds", [(-40, 49), (-10, 20)])
+def test_direct_probe_matches_jax(bounds):
+    """The dense offset-table probe; the narrower ``bounds`` leave build
+    keys outside the table, which never match."""
+    kmin, kmax = bounds
+    rng = np.random.default_rng(22)
+    bc, bn, bv = _side(rng, 600, -40, 50, np.int64)
+    pc, pn, pv = _side(rng, 900, -60, 70, np.int64)
+    bsk = jj.build_sorted(_j(bc), _j(bn | ~bv))
+    tsk = tj.build_sorted(_t(bc), _t(bn | ~bv))
+    exp = jj.direct_probe(bsk[0], bsk[1], bsk[2], kmin, kmax, _j(pc),
+                          _j(pn | ~pv))
+    got = tj.direct_probe(tsk[0], tsk[2], kmin, kmax, _t(pc), _t(pn | ~pv))
+    for g, e in zip(got, exp):
+        _eq(g, e)
+    assert int(got[1].sum()) > 0
+
+
 @pytest.mark.parametrize("branch", sorted(PROBE_BRANCHES))
 def test_probe_ranges_merge_matches_jax(branch):
     bc, binv, pc, pinv, fold = _probe_inputs(branch, 3)
