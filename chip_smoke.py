@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py      # about 10 minutes on one H100
+    python3 chip_smoke.py      # about 11 minutes on one H100
 
 Phases, each printing one JSON line:
 
@@ -61,7 +61,27 @@ Phases, each printing one JSON line:
     seconds, summed step intervals on the device (CUDA events read once;
     an upper bound on its busy time), peak device bytes and the five
     kernels' launches;
-13. standalone: neither JAX nor any module of ``gpu_olap_tpu`` was loaded.
+13. entry: ``gpu_olap_tpu_torch.entry.entry(device="cuda")``'s step on its
+    example rows, then at the groupby bench width (100M rows, keys in
+    [0, 128), values in [0, 1000), threshold 500, seed 0), exact against
+    numpy; median wall of 5 runs and the kernels' launches;
+14. dryrun_multichip: ``dryrun_multichip(8, devices=["cuda:0"] * 8)``: one
+    distributed join + GROUP BY step (exact against numpy), the
+    overflow-retry loop, the skew-broadcast parity and the shuffle/local
+    split;
+15. cli: ``python -m gpu_olap_tpu_torch`` over an 8,388,608-row Parquet file
+    (seed 7) that the default config caches whole: a filtered aggregate
+    (filter_agg must launch), a GROUP BY printing 50 rows (seg_agg must
+    launch), an ``--explain``, the filter query in a fresh process, and a
+    self-join GROUP BY with ``--mesh 8``; every printed row exact;
+16. engine_concurrent: ``GpuOlapEngine(device="cuda")``, the five queries of
+    ``tests/test_engine_concurrent.py`` over that table, each six times
+    through ``query_async`` and once through ``aquery``, equal to the serial
+    answers (and those to the oracle); the result cache; ``shutdown``;
+17. examples: each flow of ``examples/torch_usage.py`` at full demo size,
+    equal to the same flow on the oracle; then ``host_surface``, the
+    seconds of phases 13-17 together;
+18. standalone: neither JAX nor any module of ``gpu_olap_tpu`` was loaded.
 
 The eight shards on one card measure the distributed code path, not
 scaling.  The line before the last is a JSON object with one entry per
@@ -72,6 +92,7 @@ raises.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -113,6 +134,13 @@ STREAM_ROWS = 1_000_000_000
 STREAM_GROUPS = 4_000_000
 STREAM_PIECE = 50_000_000
 GRACE_ROWS = 20_000_000
+# the entry points: entry()'s step at the groupby bench width (keys in
+# [0, 128)); the CLI's Parquet table, the largest the default config caches
+# whole (under its 10M-row threshold)
+ENTRY_ROWS = 100_000_000
+ENTRY_REPS = 5
+CLI_ROWS = 8_388_608
+CLI_KEYS = 262_144
 
 
 def _say(phase: str, **kv) -> None:
@@ -1493,6 +1521,413 @@ def _run_streaming(dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the entry points and the host surface
+# ---------------------------------------------------------------------------
+
+def _launches() -> dict:
+    from gpu_olap_tpu_torch.ops.kernels import _build
+
+    return {k: _build.launches.get(k, 0) for k in KERNELS}
+
+
+def _need_launch(launches: dict, names, what: str) -> None:
+    missing = [k for k in names if not launches[k]]
+    if missing:
+        raise AssertionError(f"{what}: {missing} did not launch ({launches})")
+
+
+def _run_entry(dev, card: str) -> None:
+    """``entry()``'s step: on its 4096 example rows, then at the groupby
+    bench width (``ENTRY_ROWS`` rows, keys in [0, 128), values in [0, 1000),
+    threshold 500, seed 0), exact against numpy; the median wall of
+    ``ENTRY_REPS`` warm runs and the kernels' launches over them."""
+    from gpu_olap_tpu_torch.entry import MAX_GROUPS, entry
+    from gpu_olap_tpu_torch.ops.kernels import _build
+
+    fn, (k, v, thr) = entry(device=dev)
+
+    def check(what, out, keys, vals):
+        gk, s, c, n = (t.cpu().numpy() for t in out)
+        m = vals > thr
+        uk = np.unique(keys[m])
+        n = int(n)
+        if n != len(uk) or n > MAX_GROUPS:
+            raise AssertionError(f"{what}: {n} groups, numpy {len(uk)}")
+        _exact(what, {"k": gk[:n], "s": s[:n], "c": c[:n]},
+               {"k": uk, "s": np.bincount(keys[m], weights=vals[m])[uk]
+                .astype(np.int64), "c": np.bincount(keys[m])[uk]})
+        return n
+
+    example_groups = check("entry() example", fn(k, v, thr), k.cpu().numpy(),
+                           v.cpu().numpy())
+    rng = np.random.default_rng(0)
+    keys = rng.integers(0, 128, ENTRY_ROWS).astype(np.int64)
+    vals = rng.integers(0, 1000, ENTRY_ROWS).astype(np.int64)
+    kd, vd = torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev)
+    t0 = time.perf_counter()
+    out = fn(kd, vd, thr)
+    torch.cuda.synchronize(dev)
+    cold = time.perf_counter() - t0
+    _build.launches.clear()
+    walls = []
+    for _ in range(ENTRY_REPS):
+        t0 = time.perf_counter()
+        out = fn(kd, vd, thr)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    launches = _launches()
+    groups = check("entry() at the bench width", out, keys, vals)
+    _say("entry", card=card, example_rows=int(k.shape[0]),
+         example_groups=example_groups, rows=ENTRY_ROWS, groups=groups,
+         cold_s=cold, runs=ENTRY_REPS, wall_median_s=float(np.median(walls)),
+         wall_min_s=min(walls), wall_max_s=max(walls),
+         rows_per_s=ENTRY_ROWS / float(np.median(walls)), launches=launches,
+         exact=True)
+    del kd, vd, out
+    torch.cuda.empty_cache()
+
+
+def _run_dryrun(dev, card: str) -> None:
+    """``dryrun_multichip(8)`` on eight logical shards of the card; its first
+    step's groups exact against numpy's join + GROUP BY."""
+    import contextlib
+    import io
+
+    from gpu_olap_tpu_torch.entry import dryrun_multichip
+    from gpu_olap_tpu_torch.ops.kernels import _build
+
+    _build.launches.clear()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        out = dryrun_multichip(DIST_SHARDS, devices=[str(dev)] * DIST_SHARDS)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    # the dry run's tables (seed 0, 64 rows per shard a side)
+    rng = np.random.default_rng(0)
+    n = DIST_SHARDS * 64
+    lk, lv = rng.integers(0, 32, n), rng.integers(1, 10, n)
+    rk, rv = rng.integers(0, 32, n), rng.integers(1, 10, n)
+    cnt, tot = _per_key_join(32, lk, rk, lv, rv)
+    exp = {int(k): (int(tot[k]), int(cnt[k])) for k in np.flatnonzero(cnt)}
+    if out["group_map"] != exp:
+        raise AssertionError("dryrun_multichip: first step differs from numpy")
+    _say("dryrun_multichip", card=card, printed=printed.getvalue().strip(),
+         wall_s=wall, **{k: v for k, v in out.items() if k != "group_map"},
+         launches=launches, exact=True)
+
+
+# the five queries of tests/test_engine_concurrent.py
+CONCURRENT_QUERIES = [
+    "SELECT COUNT(*) AS n FROM t",
+    "SELECT k, SUM(v) AS s FROM t GROUP BY k ORDER BY k",
+    "SELECT COUNT(*) AS n, SUM(v) AS s FROM t WHERE v > 500",
+    "SELECT t.k, SUM(t.v + u.w) AS s FROM t JOIN u ON t.k = u.k "
+    "GROUP BY t.k ORDER BY t.k",
+    "SELECT DISTINCT k FROM t ORDER BY k LIMIT 10",
+]
+CLI_FILTER_SQL = "SELECT COUNT(*) AS n, SUM(v) AS s FROM t WHERE v > 500"
+CLI_GROUP_SQL = ("SELECT k, SUM(v) AS s, MIN(v) AS mn, MAX(v) AS mx FROM t "
+                 "GROUP BY k ORDER BY k")
+CLI_JOIN_SQL = ("SELECT a.k, COUNT(*) AS n, SUM(b.v) AS s FROM t a JOIN t b "
+                "ON a.k = b.k GROUP BY a.k ORDER BY a.k")
+
+
+def _write_cli_table(path: str):
+    """The ``cli`` phase's table: ``k`` in [0, CLI_KEYS), ``v`` in
+    [0, 1000), int64, seed 7, CLI_ROWS rows (under the 10M-row cache
+    threshold, so the default config caches it whole).  Returns k, v."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(7)
+    k = rng.integers(0, CLI_KEYS, CLI_ROWS)
+    v = rng.integers(0, 1000, CLI_ROWS)
+    pq.write_table(pa.table({"k": k, "v": v}), path)
+    return k, v
+
+
+def _printed_rows(stdout: str, ncols: int) -> np.ndarray:
+    """The rows pandas printed (index first), as numbers: the header line,
+    then one line per row; a '... (N rows total)' line may follow."""
+    rows = [line.split() for line in stdout.splitlines()[1:]
+            if not line.startswith("...")]
+    if any(len(r) != ncols + 1 for r in rows):
+        raise AssertionError(f"unexpected printed rows: {stdout[:500]!r}")
+    return np.array([[float(x) for x in r[1:]] for r in rows])
+
+
+def _cli(argv, what: str, backend: str):
+    """One in-process ``cli.main(argv)``: (stdout, wall, launches); the exit
+    code must be 0 and the footer must name ``backend``."""
+    import contextlib
+    import io
+
+    from gpu_olap_tpu_torch import cli
+    from gpu_olap_tpu_torch.ops.kernels import _build
+
+    out, err = io.StringIO(), io.StringIO()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0 or (backend and f"[{backend}]" not in err.getvalue()):
+        raise AssertionError(f"{what}: rc {rc}, stderr {err.getvalue()!r}")
+    return out.getvalue(), wall, _launches()
+
+
+def _run_cli(dev, card: str, path: str, k: np.ndarray, v: np.ndarray) -> None:
+    """``python -m gpu_olap_tpu_torch`` over the cached Parquet table: a
+    filtered aggregate (filter_agg), a GROUP BY printing its first 50 rows
+    (seg_agg), an ``--explain``, the filter query again in a fresh process,
+    and a self-join GROUP BY on eight logical shards; every printed row
+    exact against numpy."""
+    table = ["--device", str(dev), "--table", f"t={path}"]
+    label = f"torch-{dev.type}"
+    runs = {}
+
+    m = v > 500
+    exp_filter = np.array([[m.sum(), v[m].sum()]], dtype=float)
+    out, wall, launches = _cli(table + [CLI_FILTER_SQL], "cli filter", label)
+    if not np.array_equal(_printed_rows(out, 2), exp_filter):
+        raise AssertionError(f"cli filter: printed {out!r}")
+    _need_launch(launches, ["filter_agg"], "cli filter")
+    runs["filter"] = {"wall_s": wall, "launches": launches}
+
+    packed = (k << 10) | v  # v < 2^10: (k, v) order in one int64
+    packed.sort()
+    ks, vs = packed >> 10, packed & 1023
+    starts = np.flatnonzero(np.concatenate([[True], ks[1:] != ks[:-1]]))
+    ends = np.concatenate([starts[1:], [len(ks)]]) - 1
+    sums = np.add.reduceat(vs, starts)
+    cnt = np.diff(np.concatenate([starts, [len(ks)]]))
+    del packed
+    exp_group = np.stack([ks[starts], sums, vs[starts], vs[ends]],
+                         axis=1)[:50].astype(float)
+    out, wall, launches = _cli(table + ["--max-rows", "50", CLI_GROUP_SQL],
+                               "cli group by", label)
+    if not np.array_equal(_printed_rows(out, 4), exp_group) or \
+            f"... ({len(starts)} rows total)" not in out:
+        raise AssertionError(f"cli group by: printed {out[:2000]!r}")
+    _need_launch(launches, ["seg_agg"], "cli group by")
+    runs["group_by"] = {"wall_s": wall, "groups": int(len(starts)),
+                        "launches": launches}
+
+    out, wall, launches = _cli(table + ["--explain", CLI_GROUP_SQL],
+                               "cli explain", "")
+    if "TpuTableScan" not in out or "Aggregate" not in out:
+        raise AssertionError(f"cli explain: {out!r}")
+    runs["explain"] = {"wall_s": wall, "launches": launches}
+
+    # a fresh process: it loads the kernel library the runs above built
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "gpu_olap_tpu_torch", *table, CLI_FILTER_SQL],
+        capture_output=True, text=True, timeout=600, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root))
+    wall = time.perf_counter() - t0
+    if res.returncode != 0 or f"[{label}]" not in res.stderr or \
+            not np.array_equal(_printed_rows(res.stdout, 2), exp_filter):
+        raise AssertionError(f"cli subprocess: rc {res.returncode}, "
+                             f"{res.stdout!r}, {res.stderr!r}")
+    runs["subprocess_filter"] = {"wall_s": wall,
+                                 "footer": res.stderr.strip()}
+
+    # the self-join on the mesh: per key, count^2 pairs and count * SUM(v)
+    mesh = ",".join([str(dev)] * DIST_SHARDS)
+    out, wall, launches = _cli(
+        table + ["--mesh", str(DIST_SHARDS), "--mesh-devices", mesh,
+                 "--max-rows", "50", CLI_JOIN_SQL],
+        "cli mesh self-join", "torch-distributed")
+    exp_join = np.stack([ks[starts], cnt * cnt, cnt * sums],
+                        axis=1)[:50].astype(float)
+    if not np.array_equal(_printed_rows(out, 3), exp_join):
+        raise AssertionError(f"cli mesh self-join: printed {out[:2000]!r}")
+    runs["mesh_self_join"] = {"wall_s": wall,
+                              "pairs": int((cnt * cnt).sum()),
+                              "launches": launches}
+    _say("cli", card=card, rows=CLI_ROWS, keys=CLI_KEYS, runs=runs,
+         exact=True)
+
+
+def _concurrent_expected(k: np.ndarray, v: np.ndarray, w: np.ndarray):
+    """numpy's answers to CONCURRENT_QUERIES over t(k, v) and u(k, w)."""
+    import pandas as pd
+
+    cnt = np.bincount(k, minlength=CLI_KEYS)
+    sums = np.bincount(k, weights=v, minlength=CLI_KEYS).astype(np.int64)
+    keys = np.flatnonzero(cnt)
+    joined = keys[keys < len(w)]
+    m = v > 500
+    frames = [{"n": [len(k)]},
+              {"k": keys, "s": sums[keys]},
+              {"n": [m.sum()], "s": [v[m].sum()]},
+              {"k": joined, "s": sums[joined] + cnt[joined] * w[joined]},
+              {"k": keys[:10]}]
+    return {sql: pd.DataFrame(f) for sql, f in zip(CONCURRENT_QUERIES, frames)}
+
+
+def _run_concurrent(dev, card: str, path: str, k: np.ndarray,
+                    v: np.ndarray) -> None:
+    """The five queries of ``tests/test_engine_concurrent.py`` on
+    ``GpuOlapEngine`` over the ``cli`` table and a 50-row ``u``: each six
+    times through ``query_async`` and once more through ``aquery`` under
+    ``asyncio.gather``, every answer equal to the serial one (itself equal
+    to numpy's); then the result cache and ``shutdown``."""
+    import asyncio
+    from concurrent.futures import wait
+
+    from gpu_olap_tpu_torch import GpuOlapEngine
+    from gpu_olap_tpu_torch.ops.kernels import _build
+
+    label = f"torch-{dev.type}"
+    eng = GpuOlapEngine(device=dev, enable_cache=False)
+    eng.load_table("t", path)
+    w = np.random.default_rng(3).integers(0, 10, 50)
+    eng.register("u", {"k": np.arange(50, dtype=np.int64), "w": w})
+    expected = _concurrent_expected(k, v, w)
+    serial = {}
+    t0 = time.perf_counter()
+    for sql in CONCURRENT_QUERIES:
+        r = eng.query(sql)
+        if r.metrics["backend"] != label:
+            raise AssertionError(f"{sql}: backend {r.metrics['backend']}")
+        serial[sql] = r.to_pandas()
+    serial_s = time.perf_counter() - t0
+    for sql in CONCURRENT_QUERIES:
+        _same_frame(serial[sql], expected[sql], sql)
+
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    futs = [(sql, eng.query_async(sql)) for sql in CONCURRENT_QUERIES * 6]
+    _, not_done = wait([f for _, f in futs], timeout=600)
+    if not_done:
+        raise AssertionError(f"{len(not_done)} queries did not finish")
+    async_s = time.perf_counter() - t0
+    for sql, f in futs:
+        r = f.result()
+        if r.metrics["backend"] != label:
+            raise AssertionError(f"{sql}: backend {r.metrics['backend']}")
+        _same_frame(r.to_pandas(), serial[sql], f"query_async: {sql}")
+
+    async def gather():
+        return await asyncio.gather(*(eng.aquery(sql)
+                                      for sql in CONCURRENT_QUERIES))
+
+    t0 = time.perf_counter()
+    results = asyncio.run(gather())
+    aquery_s = time.perf_counter() - t0
+    for sql, r in zip(CONCURRENT_QUERIES, results):
+        _same_frame(r.to_pandas(), serial[sql], f"aquery: {sql}")
+    launches = _launches()
+    # the pool's threads launch on the default stream, as the main thread
+    streams = {f.result() for f in [
+        eng._get_pool().submit(lambda: torch.cuda.current_stream(dev)
+                               .cuda_stream) for _ in range(32)]}
+    eng.shutdown()
+    if eng._pool is not None:
+        raise AssertionError("shutdown left the pool open")
+
+    cached = GpuOlapEngine(device=dev)
+    cached.catalog = eng.catalog
+    sql = CONCURRENT_QUERIES[1]
+    first, second = cached.query(sql), cached.query(sql)
+    if (first.metrics["backend"], second.metrics["backend"]) != \
+            (label, "result-cache"):
+        raise AssertionError(f"result cache: {first.metrics['backend']}, "
+                             f"{second.metrics['backend']}")
+    _same_frame(second.to_pandas(), serial[sql], "result cache")
+    cached.shutdown()
+    _say("engine_concurrent", card=card, rows=CLI_ROWS,
+         queries=len(CONCURRENT_QUERIES), async_submissions=len(futs),
+         serial_s=serial_s, query_async_s=async_s, aquery_gather_s=aquery_s,
+         pool_workers=eng.config.num_feed_buffers,
+         pool_thread_streams=sorted(streams),
+         main_thread_stream=torch.cuda.current_stream(dev).cuda_stream,
+         launches=launches, result_cache=True, equal=True)
+    del eng, cached
+    torch.cuda.empty_cache()
+
+
+def _run_examples(dev, card: str) -> None:
+    """Each flow of ``examples/torch_usage.py`` on the card at its full demo
+    size, every result equal to the same flow on the NumPy oracle."""
+    import contextlib
+    import importlib.util
+    import io
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "torch_usage", os.path.join(root, "examples", "torch_usage.py"))
+    usage = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(usage)
+    from gpu_olap_tpu_torch.ops.kernels import _build
+
+    scale = usage.demo_scale(str(dev))
+    label = f"torch-{dev.type}"
+    flows = {}
+    for flow in usage.FLOWS:
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = flow(usage.port_engine(str(dev)), scale)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            exp = flow(usage.port_engine("cpu", backend="cpu"), scale)
+        if got.keys() != exp.keys():
+            raise AssertionError(f"{flow.__name__}: {got.keys()} vs "
+                                 f"{exp.keys()}")
+        for name, r in got.items():
+            if r.metrics["backend"] != label:
+                raise AssertionError(f"{flow.__name__} {name}: backend "
+                                     f"{r.metrics['backend']}")
+            _same_frame(r.to_pandas(), exp[name].to_pandas(),
+                        f"{flow.__name__} {name}")
+        flows[flow.__name__] = {
+            "wall_s": wall, "skipped": not got,
+            "rows": {name: r.num_rows for name, r in got.items()},
+            "launches": launches}
+    _say("examples", card=card, scale=scale, flows=flows, equal=True)
+    torch.cuda.empty_cache()
+
+
+def _run_host_surface(dev, card: str) -> None:
+    """The entry points and the host surface: ``entry``,
+    ``dryrun_multichip``, the CLI, concurrent queries and the examples,
+    then one line with the seconds these phases took together."""
+    import shutil
+    import tempfile
+
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        seconds[name] = time.perf_counter() - t0
+
+    timed("entry", _run_entry, dev, card)
+    timed("dryrun_multichip", _run_dryrun, dev, card)
+    d = tempfile.mkdtemp(prefix="olap_cli_")
+    try:
+        path = os.path.join(d, "t.parquet")
+        t0 = time.perf_counter()
+        k, v = _write_cli_table(path)
+        seconds["cli_table_write"] = time.perf_counter() - t0
+        timed("cli", _run_cli, dev, card, path, k, v)
+        timed("engine_concurrent", _run_concurrent, dev, card, path, k, v)
+        del k, v
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    timed("examples", _run_examples, dev, card)
+    _say("host_surface", card=card, seconds=seconds,
+         total_seconds=sum(seconds.values()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1523,6 +1958,7 @@ def main() -> int:
     del lk
     _run_engine_distributed(dev, card)
     _run_streaming(dev, card)
+    _run_host_surface(dev, card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     loaded = sorted(m for m in sys.modules

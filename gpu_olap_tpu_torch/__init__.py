@@ -7,8 +7,17 @@ torch executor, its operators and the hand-written CUDA kernels under
 ``csrc/``.  It imports neither JAX nor anything of ``gpu_olap_tpu``.
 """
 
+from .catalog import Catalog
 from .config import EngineConfig
-from .engine import TorchOlapEngine
+from .engine import GpuOlapEngine, OlapEngine, TorchOlapEngine, TpuOlapEngine
 from .executor.result import QueryResult
+from .interop.columnar import Column, ColumnBatch, DType, Field, Schema
+from .sql.parser import parse_sql
 
-__all__ = ["EngineConfig", "QueryResult", "TorchOlapEngine"]
+__version__ = "0.1.0"
+
+__all__ = [
+    "Catalog", "Column", "ColumnBatch", "DType", "EngineConfig", "Field",
+    "GpuOlapEngine", "OlapEngine", "QueryResult", "Schema", "TorchOlapEngine",
+    "TpuOlapEngine", "parse_sql",
+]

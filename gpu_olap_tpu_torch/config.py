@@ -10,7 +10,11 @@ TPU-native analogue of the reference's ``EngineConfig``
 feeding slots), ``use_unified_memory`` becomes ``out_of_core`` (host-streamed scans),
 and ``batch_size`` / ``enable_cache`` keep their roles.  We add TPU-specific knobs:
 shape-bucketing policy (recompile avoidance), join/aggregate capacity policies, and
-mesh shape for multi-host execution.
+mesh shape for multi-host execution.  ``from_kwargs`` takes the reference's
+names as aliases; the streamer's staging arena takes ``max_hbm_bytes`` as its
+byte limit.  ``out_of_core`` (``use_unified_memory``) is accepted and read by
+nothing, as in the JAX package: tables above ``table_cache_threshold_rows``
+stream whatever it says.
 """
 
 from __future__ import annotations
@@ -86,4 +90,21 @@ class EngineConfig:
     # exceed the cache threshold; reference PROJECT_SUMMARY.md:24,115-118)
     spill_dir: Optional[str] = None                # None = system temp dir
     spill_partitions: Optional[int] = None         # None = auto from sizes
+
+    # --- compatibility aliases (reference Python ctor kwargs) ---
+    @classmethod
+    def from_kwargs(cls, **kwargs) -> "EngineConfig":
+        alias = {
+            "max_gpu_memory": "max_hbm_bytes",
+            "num_streams": "num_feed_buffers",
+            "use_unified_memory": "out_of_core",
+        }
+        resolved = {}
+        for key, value in kwargs.items():
+            resolved[alias.get(key, key)] = value
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(resolved) - known
+        if unknown:
+            raise TypeError(f"Unknown EngineConfig options: {sorted(unknown)}")
+        return cls(**resolved)
 

@@ -18,6 +18,9 @@ plans the torch path does not cover (cross joins) run on the CPU oracle and
 say so in ``metrics["backend"] == "cpu-fallback"``.
 ``metrics["routes"]`` names the device routes the query took: the
 ``torch_*`` counters of ``GLOBAL_METRICS`` that its execution bumped.
+``GpuOlapEngine`` (alias ``TpuOlapEngine``) is the binding-style
+constructor of ``gpu_olap_tpu``: ``EngineConfig.from_kwargs`` over its
+keywords.
 """
 
 from __future__ import annotations
@@ -146,7 +149,7 @@ class TorchOlapEngine:
                 if self.mesh is not None:
                     try:
                         with self._device_lock:
-                            before = dict(GLOBAL_METRICS.counters)
+                            before = GLOBAL_METRICS.snapshot()
                             batch = self._get_distributed_executor().execute(
                                 physical)
                             routes = _routes_since(before)
@@ -160,7 +163,7 @@ class TorchOlapEngine:
                         # one accelerator: queries serialize on it (the
                         # executor also mutates its table cache)
                         with self._device_lock:
-                            before = dict(GLOBAL_METRICS.counters)
+                            before = GLOBAL_METRICS.snapshot()
                             batch = dev.execute(physical)
                             backend = dev.last_backend
                             routes = _routes_since(before)
@@ -270,7 +273,25 @@ class TorchOlapEngine:
         return self._dist_executor
 
 
+class GpuOlapEngine(TorchOlapEngine):
+    """Binding-style constructor accepting the reference's kwargs
+    (``gpu_olap_py.GpuOlapEngine(max_gpu_memory=..., num_streams=...,
+    use_unified_memory=...)``, README.md:260-270) and any ``EngineConfig``
+    field; ``device`` and ``mesh_devices`` go to ``TorchOlapEngine``."""
+
+    def __init__(self, *, device="cuda",
+                 mesh_devices: Optional[Sequence] = None, **kwargs):
+        super().__init__(EngineConfig.from_kwargs(**kwargs), device=device,
+                         mesh_devices=mesh_devices)
+
+
+# the names of ``gpu_olap_tpu``: code written against it changes only its
+# import line
+TpuOlapEngine = GpuOlapEngine
+OlapEngine = TorchOlapEngine
+
+
 def _routes_since(before: dict) -> list:
     """The ``torch_*`` route counters bumped since the snapshot ``before``."""
-    return sorted(k for k, v in GLOBAL_METRICS.counters.items()
+    return sorted(k for k, v in GLOBAL_METRICS.snapshot().items()
                   if k.startswith("torch_") and v > before.get(k, 0))

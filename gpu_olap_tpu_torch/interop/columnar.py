@@ -45,6 +45,10 @@ class DType(enum.Enum):
         raise AssertionError(self)
 
     @property
+    def is_numeric(self) -> bool:
+        return self in (DType.INT64, DType.FLOAT64)
+
+    @property
     def byte_width(self) -> int:
         return 1 if self is DType.BOOL else 8
 
@@ -119,6 +123,9 @@ class Schema:
             )
         raise UnknownColumn(f"Unknown column {name!r}; available: {self.names}")
 
+    def field_by_name(self, name: str) -> Field:
+        return self.fields[self.index_of(name)]
+
     def project(self, indices: Sequence[int]) -> "Schema":
         return Schema([self.fields[i] for i in indices])
 
@@ -137,6 +144,10 @@ class Schema:
         for f, b in zip(self.fields, bases):
             out.append(f.with_name(b) if bases.count(b) == 1 else f)
         return Schema(out)
+
+    def row_byte_width(self) -> int:
+        """Analogue of ``schema_utils.rs:20-27``."""
+        return sum(f.dtype.byte_width for f in self.fields)
 
     def merge(self, other: "Schema") -> "Schema":
         return Schema(list(self.fields) + list(other.fields))
@@ -160,6 +171,11 @@ class Column:
 
     def __len__(self) -> int:
         return int(self.data.shape[0])
+
+    @property
+    def has_nulls(self) -> bool:
+        # ``all()`` of a numpy array or a tensor on any device
+        return self.validity is not None and not bool(self.validity.all())
 
     def to_numpy(self) -> "Column":
         val = None if self.validity is None else np.asarray(self.validity)

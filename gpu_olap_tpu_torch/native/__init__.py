@@ -1,8 +1,8 @@
 """Native (C++) helpers for host-side hot loops, loaded via ctypes.
 
-Copy of ``gpu_olap_tpu/native``, trimmed to what the port calls: string
-dictionary encoding (``interop/arrow.py``) and the zone-map scans of
-``catalog.py``.  ``fastconv.cpp`` is built with ``g++`` at first use into
+Copy of ``gpu_olap_tpu/native``: string dictionary encoding
+(``interop/arrow.py``), the zone-map scans of ``catalog.py``, FNV-1a string
+hashes and Arrow validity-bitmap unpacking.  ``fastconv.cpp`` is built with ``g++`` at first use into
 ``gpu_olap_tpu_torch/_build/native-<hash of the source>/`` (listed in
 ``.gitignore``), never next to the source.  Every entry point returns None
 when no toolchain is present, and its caller takes its NumPy path.  These
@@ -64,6 +64,9 @@ def get_lib():
             return None
         try:
             lib = ctypes.CDLL(so)
+            lib.fnv1a_hash64.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ]
             lib.dict_encode_utf8_build.restype = ctypes.c_void_p
             lib.dict_encode_utf8_build.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -72,6 +75,9 @@ def get_lib():
             ]
             lib.dict_encode_utf8_finish.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ]
+            lib.unpack_bitmap.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
             ]
             lib.int64_minmax.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64,
@@ -89,6 +95,18 @@ def get_lib():
 
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def fnv1a_hash64(data: np.ndarray, offsets: np.ndarray) -> Optional[np.ndarray]:
+    """FNV-1a 64-bit hash of Arrow-layout strings; None if native unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(offsets) - 1
+    out = np.empty(n, dtype=np.int64)
+    lib.fnv1a_hash64(_ptr(data), _ptr(np.ascontiguousarray(offsets, np.int64)),
+                     n, _ptr(out))
+    return out
 
 
 def dict_encode_utf8(
@@ -155,3 +173,13 @@ def int64_unique_bounded(data: np.ndarray, lo: int, hi: int) -> Optional[bool]:
     if r < 0:
         return None
     return bool(r)
+
+
+def unpack_bitmap(bits: np.ndarray, bit_offset: int, n: int) -> Optional[np.ndarray]:
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.empty(n, dtype=np.uint8)
+    lib.unpack_bitmap(_ptr(np.ascontiguousarray(bits, np.uint8)),
+                      bit_offset, n, _ptr(out))
+    return out.astype(bool)

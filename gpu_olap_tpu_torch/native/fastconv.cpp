@@ -6,9 +6,12 @@
 // Operates directly on Arrow string-array buffers (offsets + data) so the
 // Python layer never loops over rows.
 //
-// Copy of gpu_olap_tpu/native/fastconv.cpp, trimmed to what the port calls.
+// Copy of gpu_olap_tpu/native/fastconv.cpp.
 //
 // Functions:
+//   fnv1a_hash64      — 64-bit FNV-1a of each string (the reference's string
+//                       hash, record_batch_convert.rs:123-130, kept for
+//                       compatibility paths / hash partitioning)
 //   dict_encode_utf8  — dictionary-encode a string column: codes into a
 //                       *lexicographically sorted* unique-string dictionary
 //                       (sorted dictionaries make code order == string order,
@@ -22,6 +25,21 @@
 #include <vector>
 
 extern "C" {
+
+// 64-bit FNV-1a over [offsets[i], offsets[i+1]) slices of data.
+void fnv1a_hash64(const uint8_t* data, const int64_t* offsets, int64_t n,
+                  int64_t* out) {
+    constexpr uint64_t kBasis = 14695981039346656037ULL;
+    constexpr uint64_t kPrime = 1099511628211ULL;
+    for (int64_t i = 0; i < n; ++i) {
+        uint64_t h = kBasis;
+        for (int64_t j = offsets[i]; j < offsets[i + 1]; ++j) {
+            h ^= data[j];
+            h *= kPrime;
+        }
+        out[i] = static_cast<int64_t>(h & 0x7FFFFFFFFFFFFFFFULL);
+    }
+}
 
 // Dictionary-encode n strings given as Arrow offsets+data (+ optional
 // validity byte mask, 1 = valid).  Writes int64 codes (0 for nulls).
@@ -97,6 +115,15 @@ void dict_encode_utf8_finish(void* handle, int64_t* codes_out,
     }
     dict_offsets_out[st->uniques_sorted.size()] = off;
     delete st;
+}
+
+// Validity bitmap (Arrow packed bits) -> byte mask.
+void unpack_bitmap(const uint8_t* bits, int64_t bit_offset, int64_t n,
+                   uint8_t* out) {
+    for (int64_t i = 0; i < n; ++i) {
+        int64_t b = bit_offset + i;
+        out[i] = (bits[b >> 3] >> (b & 7)) & 1;
+    }
 }
 
 }  // extern "C"

@@ -5,13 +5,16 @@ the port has its own registry: per-operator wall clock, rows in/out and bytes
 touched (``record_span``), and the route counters (``bump``) that
 ``TorchOlapEngine`` reports as ``metrics["routes"]``.  The reference's
 roofline fraction is left out: it needs a memory rate of the device, which
-this registry does not measure.
+this registry does not measure.  Every method takes the registry's lock:
+engines on other devices, each under its own device lock, bump counters
+from their pool threads while another engine reads them.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 from typing import Dict, List
 
@@ -33,22 +36,33 @@ class MetricsRegistry:
     def __init__(self):
         self.ops: Dict[str, OpStats] = collections.defaultdict(OpStats)
         self.counters: Dict[str, float] = collections.defaultdict(float)
+        self._lock = threading.Lock()
 
     def record_span(self, label: str, seconds: float, rows_in: int = 0,
                     rows_out: int = 0, bytes_accessed: int = 0, **_):
-        st = self.ops[label]
-        st.calls += 1
-        st.seconds += seconds
-        st.rows_in += rows_in
-        st.rows_out += rows_out
-        st.bytes_accessed += bytes_accessed
+        with self._lock:
+            st = self.ops[label]
+            st.calls += 1
+            st.seconds += seconds
+            st.rows_in += rows_in
+            st.rows_out += rows_out
+            st.bytes_accessed += bytes_accessed
 
     def bump(self, name: str, value: float = 1.0):
-        self.counters[name] += value
+        with self._lock:
+            self.counters[name] += value
+
+    def snapshot(self) -> Dict[str, float]:
+        """A copy of the counters, taken under the lock."""
+        with self._lock:
+            return dict(self.counters)
 
     def summary(self) -> List[dict]:
+        with self._lock:
+            ops = sorted((label, dataclasses.replace(st))
+                         for label, st in self.ops.items())
         out = []
-        for label, st in sorted(self.ops.items()):
+        for label, st in ops:
             out.append({
                 "op": label,
                 "calls": st.calls,
@@ -61,8 +75,9 @@ class MetricsRegistry:
         return out
 
     def reset(self):
-        self.ops.clear()
-        self.counters.clear()
+        with self._lock:
+            self.ops.clear()
+            self.counters.clear()
 
 
 GLOBAL_METRICS = MetricsRegistry()

@@ -1,11 +1,12 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
-(a) No ``.py`` file of ``gpu_olap_tpu_torch`` and no chip script
-    imports ``jax``, ``gpu_olap_tpu`` or a submodule of either (names match
-    exactly, so ``gpu_olap_tpu_torch`` itself is allowed).
+(a) No ``.py`` file of ``gpu_olap_tpu_torch``, no chip script and not
+    ``examples/torch_usage.py`` imports ``jax``, ``gpu_olap_tpu`` or a
+    submodule of either (names match exactly, so ``gpu_olap_tpu_torch``
+    itself is allowed).
 (b) With ``jax`` and ``gpu_olap_tpu`` blocked from import, the port answers
     a filtered aggregate, a GROUP BY, a join and a UNION ALL on the CPU, as
-    numpy does.
+    numpy does, and its entry points and CLI run.
 (c) The port's own parser, optimizer and planner give the JAX package's
     ``explain`` text for every query of the port's parity corpus.
 """
@@ -38,7 +39,7 @@ def _sources():
         out += [os.path.relpath(os.path.join(dirpath, f), ROOT)
                 for f in files if f.endswith(".py")]
     return sorted(out) + ["chip_smoke.py", "chip_trace.py",
-                          "chip_kernel_ab.py"]
+                          "chip_kernel_ab.py", "examples/torch_usage.py"]
 
 
 def _imported_modules(path):
@@ -99,6 +100,7 @@ _BLOCKED_RUN = textwrap.dedent("""
 
     import numpy as np
     from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+    from gpu_olap_tpu_torch import cli, entry
 
     rng = np.random.default_rng(0)
     n = 70_000
@@ -139,6 +141,15 @@ _BLOCKED_RUN = textwrap.dedent("""
              "SELECT k FROM d WHERE w < 30")
     exp = np.sort(np.concatenate([k[v > 990], np.arange(10)]))
     assert (np.sort(df.k.to_numpy()) == exp).all()
+
+    # the entry points (their own output kept off this run's)
+    import contextlib
+    import io
+    fn, args = entry.entry("cpu")
+    assert int(fn(*args)[3]) == 128
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert entry.dryrun_multichip(4, ["cpu"] * 4)["retries"] >= 1
+    assert cli.main(["--device", "cpu", "SELEC 1"]) == 0
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "gpu_olap_tpu"))
