@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py      # about 11 minutes on one H100
+    python3 chip_smoke.py                      # about 12 minutes, one H100
+    python3 chip_smoke.py --only multiprocess  # the build and phase 11 alone
 
 Phases, each printing one JSON line:
 
@@ -43,12 +44,25 @@ Phases, each printing one JSON line:
 10. kernels_dist_shapes: radix_hist against its plain version on 200M keys
     at shifts 0, 8, 16 and 24 and on the step's partition ids (8 and 1
     shards), with both times, the bound and ``torch.bincount``'s;
-11. engine_distributed: ``TorchOlapEngine`` with ``mesh_shape=(8,)`` on the
+11. multiprocess: config 5 again, through ``dist_ops`` over an NCCL process
+    group, one rank per card (W = the card count, or its largest divisor
+    of 8), the 8 shards split 8 / W to a rank; each rank is this script
+    started with ``--rank`` and joins through a file store in a temporary
+    directory; every rank makes the same global tables, plans with B5 over
+    its own rows summed by ``psum`` (each summed histogram must equal a
+    host count of every rank's rows, and the capacity the single-process
+    plan's), runs the step on its shards; rank 0 gathers
+    every shard's groups and checks them exact against numpy; per rank:
+    warm walls, the shuffle and local stages, the bytes sent to other
+    ranks, the step's all-to-all alone, peak device bytes and B5
+    launches.  A rank that fails or outlives 300 s fails the phase, with
+    every rank killed;
+12. engine_distributed: ``TorchOlapEngine`` with ``mesh_shape=(8,)`` on the
     same logical mesh: the distributed query corpus on 1M rows against the
     CPU oracle, then a config-5 SQL join + GROUP BY on 8M rows per side
     (uniform, then Zipf keys on the skew-broadcast route), exact against
     numpy;
-12. engine_streaming, one line per query: out-of-core execution through
+13. engine_streaming, one line per query: out-of-core execution through
     ``TorchOlapEngine(device="cuda")`` from Parquet files written to a
     temporary directory (removed at the end): bench.py's 1B-row table
     (``k`` in [0, 4M), ``v`` in [0, 1M), seed 42) and its GROUP BY into 4M
@@ -61,32 +75,34 @@ Phases, each printing one JSON line:
     seconds, summed step intervals on the device (CUDA events read once;
     an upper bound on its busy time), peak device bytes and the five
     kernels' launches;
-13. entry: ``gpu_olap_tpu_torch.entry.entry(device="cuda")``'s step on its
+14. entry: ``gpu_olap_tpu_torch.entry.entry(device="cuda")``'s step on its
     example rows, then at the groupby bench width (100M rows, keys in
     [0, 128), values in [0, 1000), threshold 500, seed 0), exact against
     numpy; median wall of 5 runs and the kernels' launches;
-14. dryrun_multichip: ``dryrun_multichip(8, devices=["cuda:0"] * 8)``: one
+15. dryrun_multichip: ``dryrun_multichip(8, devices=["cuda:0"] * 8)``: one
     distributed join + GROUP BY step (exact against numpy), the
     overflow-retry loop, the skew-broadcast parity and the shuffle/local
     split;
-15. cli: ``python -m gpu_olap_tpu_torch`` over an 8,388,608-row Parquet file
+16. cli: ``python -m gpu_olap_tpu_torch`` over an 8,388,608-row Parquet file
     (seed 7) that the default config caches whole: a filtered aggregate
     (filter_agg must launch), a GROUP BY printing 50 rows (seg_agg must
     launch), an ``--explain``, the filter query in a fresh process, and a
     self-join GROUP BY with ``--mesh 8``; every printed row exact;
-16. engine_concurrent: ``GpuOlapEngine(device="cuda")``, the five queries of
+17. engine_concurrent: ``GpuOlapEngine(device="cuda")``, the five queries of
     ``tests/test_engine_concurrent.py`` over that table, each six times
     through ``query_async`` and once through ``aquery``, equal to the serial
     answers (and those to the oracle); the result cache; ``shutdown``;
-17. examples: each flow of ``examples/torch_usage.py`` at full demo size,
+18. examples: each flow of ``examples/torch_usage.py`` at full demo size,
     equal to the same flow on the oracle; then ``host_surface``, the
-    seconds of phases 13-17 together;
-18. standalone: neither JAX nor any module of ``gpu_olap_tpu`` was loaded.
+    seconds of phases 14-18 together;
+19. standalone: neither JAX nor any module of ``gpu_olap_tpu`` was loaded.
 
 The eight shards on one card measure the distributed code path, not
-scaling.  The line before the last is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failure
-raises.
+scaling; ``multiprocess`` on four cards does (``--only multiprocess`` runs
+phases 1, 2, 11 and 19 and prints no kernel line).  The line before the
+last is a JSON object with one entry per kernel (radix_hist's launches
+include the ranks'); the last line is ``{"ok": true, "device": {...}}``.
+Any failure raises.
 """
 
 from __future__ import annotations
@@ -127,6 +143,9 @@ DIST_REPS = 5
 DIST_CORPUS_ROWS = 1 << 20
 DIST_JOIN_ROWS = 1 << 23
 RADIX_ROWS = 200_000_000
+# the multiprocess phase: every rank is killed once the phase has run this
+# long (a rank's collectives give up after mesh.DEFAULT_TIMEOUT)
+MP_TIMEOUT_S = 300
 # out-of-core: bench.py's 1B-row GROUP BY table (bench.py:211-240), written
 # in pieces; the grace join's two tables, each above the 10M-row default
 # cache threshold
@@ -1018,51 +1037,96 @@ def _per_key_join(n_keys, lk, rk, lv, rv):
     return cl * cr, sl * sr
 
 
-def _config5_step(dev, zipf: bool):
-    """BASELINE config 5 on the logical mesh: ``bench_dist.py``'s tables
-    and its capacity planning (``bench_dist.py:55-81``, through
-    ``partition_histogram`` on the card, so radix_hist).  Returns (step,
-    per-shard args, plan facts, host tables)."""
-    from gpu_olap_tpu_torch.parallel import dist_ops, skew
-    from gpu_olap_tpu_torch.parallel.mesh import make_mesh, shard_rows
+def _config5_plan(tables, zipf: bool, hist) -> dict:
+    """``bench_dist.py``'s capacity planning (``bench_dist.py:55-81``):
+    ``hist(keys, keep)`` is the destination histogram (numpy) of the rows
+    of the global array ``keys`` that ``keep`` selects (None: every row),
+    counted on the card through ``partition_histogram``, so radix_hist."""
+    from gpu_olap_tpu_torch.parallel import skew
 
     ndev, per = DIST_SHARDS, DIST_ROWS_PER_SHARD
     n = ndev * per
-    tables = _config5_data(n, zipf)
-    n_keys, lk, rk, lv, rv = tables
-    mesh = make_mesh(ndev, [dev] * ndev)
+    n_keys, lk, rk, _, _ = tables
     heavy = np.zeros(0, dtype=np.int64)
-    rk_d = torch.from_numpy(rk).to(dev)
+    light = None
     if zipf:
         heavy = skew.detect_heavy_keys(lk, row_threshold=max(256, per // 4))
-        lk_d = torch.from_numpy(lk[~np.isin(lk, heavy)]).to(dev)
-    else:
-        lk_d = torch.from_numpy(lk).to(dev)
-    hist = skew.partition_histogram(lk_d, ndev).cpu().numpy()
-    rhist = skew.partition_histogram(rk_d, ndev).cpu().numpy()
-    del lk_d, rk_d
+        light = ~np.isin(lk, heavy)
     capacity = max(
-        skew.recommend_capacity(hist, ndev, headroom=1.6 if zipf else 1.3),
-        skew.recommend_capacity(rhist, ndev, headroom=1.3))
-    join_capacity = per * (32 if zipf else 24)
-    max_groups = min(n_keys, 1 << 20)
-    if heavy.size:
-        heavy_build_cap = max(256, 4 * max(n // n_keys, 1) * int(heavy.size))
-        step = dist_ops.make_dist_join_groupby_skew(
-            mesh, capacity=capacity, join_capacity=join_capacity,
-            max_groups=max_groups, agg_funcs=("sum", "count"),
-            heavy_keys=heavy, heavy_build_cap=heavy_build_cap)
-    else:
-        step = dist_ops.make_dist_join_groupby(
-            mesh, capacity=capacity, join_capacity=join_capacity,
-            max_groups=max_groups, agg_funcs=("sum", "count"))
-    valid = shard_rows(mesh, np.ones(n, bool), False)
-    args = (shard_rows(mesh, lk), valid, shard_rows(mesh, lv),
+        skew.recommend_capacity(hist(lk, light), ndev,
+                                headroom=1.6 if zipf else 1.3),
+        skew.recommend_capacity(hist(rk, None), ndev, headroom=1.3))
+    return {"capacity": capacity,
+            "join_capacity": per * (32 if zipf else 24),
+            "max_groups": min(n_keys, 1 << 20), "heavy": heavy,
+            "heavy_build_cap": max(256, 4 * max(n // n_keys, 1)
+                                   * int(heavy.size)),
+            "heavy_probe_share": float(np.isin(lk, heavy).mean())}
+
+
+def _card_hist(dev):
+    """The single-process planner's histogram: every selected row on the
+    card at once."""
+    from gpu_olap_tpu_torch.parallel import skew
+
+    def hist(keys, keep):
+        d = torch.from_numpy(keys if keep is None else keys[keep]).to(dev)
+        return skew.partition_histogram(d, DIST_SHARDS).cpu().numpy()
+
+    return hist
+
+
+def _config5_program(mesh, plan: dict):
+    """The config-5 step over ``mesh``: the skew step when the plan has
+    heavy keys, else the fused step."""
+    from gpu_olap_tpu_torch.parallel import dist_ops
+
+    cfg = dict(capacity=plan["capacity"], join_capacity=plan["join_capacity"],
+               max_groups=plan["max_groups"], agg_funcs=("sum", "count"))
+    if plan["heavy"].size:
+        return dist_ops.make_dist_join_groupby_skew(
+            mesh, **cfg, heavy_keys=plan["heavy"],
+            heavy_build_cap=plan["heavy_build_cap"])
+    return dist_ops.make_dist_join_groupby(mesh, **cfg)
+
+
+def _config5_args(mesh, tables):
+    """The step's six per-shard arguments: this process's shards."""
+    from gpu_olap_tpu_torch.parallel.mesh import shard_rows
+
+    _, lk, rk, lv, rv = tables
+    valid = shard_rows(mesh, np.ones(lk.shape[0], bool), False)
+    return (shard_rows(mesh, lk), valid, shard_rows(mesh, lv),
             shard_rows(mesh, rk), valid, shard_rows(mesh, rv))
-    facts = {"capacity": capacity, "join_capacity": join_capacity,
-             "heavy_keys": int(heavy.size),
-             "heavy_probe_share": float(np.isin(lk, heavy).mean())}
-    return step, args, facts, tables
+
+
+def _config5_step(dev, zipf: bool):
+    """BASELINE config 5 on the logical mesh: ``bench_dist.py``'s tables
+    and its capacity planning.  Returns (step, per-shard args, plan facts,
+    host tables)."""
+    from gpu_olap_tpu_torch.parallel.mesh import make_mesh
+
+    tables = _config5_data(DIST_SHARDS * DIST_ROWS_PER_SHARD, zipf)
+    plan = _config5_plan(tables, zipf, _card_hist(dev))
+    mesh = make_mesh(DIST_SHARDS, [dev] * DIST_SHARDS)
+    facts = {"capacity": plan["capacity"],
+             "join_capacity": plan["join_capacity"],
+             "heavy_keys": int(plan["heavy"].size),
+             "heavy_probe_share": plan["heavy_probe_share"]}
+    return (_config5_program(mesh, plan), _config5_args(mesh, tables), facts,
+            tables)
+
+
+def _merged_groups(n_keys, gkeys, sums, counts, gvalid):
+    """Per join key: the pairs and the sum over every shard's groups (a
+    heavy key's groups sit on several shards)."""
+    got_n = np.zeros(n_keys, np.int64)
+    got_s = np.zeros(n_keys, np.int64)
+    for k, sm, c, v in zip(gkeys, sums, counts, gvalid):
+        v = v.cpu().numpy()
+        np.add.at(got_n, k.cpu().numpy()[v], c.cpu().numpy()[v])
+        np.add.at(got_s, k.cpu().numpy()[v], sm.cpu().numpy()[v])
+    return got_n, got_s
 
 
 def _dist_step_case(dev, zipf: bool):
@@ -1083,13 +1147,7 @@ def _dist_step_case(dev, zipf: bool):
     if bool(overflow):
         raise AssertionError(f"config-5 step overflowed (zipf={zipf}, "
                              f"capacity={capacity}, join={join_capacity})")
-    got_n = np.zeros(n_keys, np.int64)
-    got_s = np.zeros(n_keys, np.int64)
-    for k, sm, c, v in zip(gkeys, sums, counts, gvalid):
-        v = v.cpu().numpy()
-        # a heavy key's groups sit on several shards: merge them
-        np.add.at(got_n, k.cpu().numpy()[v], c.cpu().numpy()[v])
-        np.add.at(got_s, k.cpu().numpy()[v], sm.cpu().numpy()[v])
+    got_n, got_s = _merged_groups(n_keys, gkeys, sums, counts, gvalid)
     exp_n, exp_s = _per_key_join(n_keys, lk, rk, lv, rv)
     if not (np.array_equal(got_n, exp_n) and np.array_equal(got_s, exp_s)):
         raise AssertionError(f"config-5 step differs from numpy (zipf={zipf})")
@@ -1142,7 +1200,260 @@ def _run_dist_step(dev, card: str):
          "code path, not scaling", uniform=uniform, zipf=zipf,
          launches=launches)
     torch.cuda.empty_cache()
-    return launches, lk
+    return launches, lk, {"uniform": uniform["capacity"],
+                          "zipf": zipf["capacity"]}
+
+
+# ---------------------------------------------------------------------------
+# the distributed path over a process group: one rank per card, NCCL
+# ---------------------------------------------------------------------------
+
+def _mp_world():
+    """(ranks, cards): one rank per card, the most that divides the 8
+    shards evenly."""
+    cards = torch.cuda.device_count()
+    return max(w for w in range(1, min(cards, DIST_SHARDS) + 1)
+               if DIST_SHARDS % w == 0), cards
+
+
+def _median_s(fn, mesh, reps: int):
+    """Median host seconds of ``fn()`` over ``reps`` runs, every rank
+    starting together (a barrier, then the card drained) and each run
+    waited for on the card."""
+    import torch.distributed as dist
+
+    walls = []
+    for _ in range(reps):
+        dist.barrier(group=mesh.group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del out
+    return float(np.median(walls)), walls
+
+
+def _mp_case(mesh, dev, zipf: bool, single_capacity: int) -> dict:
+    """One config-5 case on this rank: every rank makes the same global
+    tables, plans with B5 over its own rows (summed across ranks by
+    ``psum`` and checked against a host count of every rank's rows), runs
+    the step on its shards; rank 0 gathers every shard's groups and checks
+    them exact against numpy."""
+    from gpu_olap_tpu_torch.ops.hashing import partition_of
+    from gpu_olap_tpu_torch.parallel import collectives, dist_ops, skew
+    from gpu_olap_tpu_torch.utils.metrics import GLOBAL_METRICS
+
+    per = DIST_ROWS_PER_SHARD
+    lo, hi = mesh.local_indices.start * per, mesh.local_indices.stop * per
+    hists_exact = []
+
+    def rank_hist(keys, keep):
+        mine = keys[lo:hi] if keep is None else keys[lo:hi][keep[lo:hi]]
+        h = skew.partition_histogram(torch.from_numpy(mine).to(dev),
+                                     DIST_SHARDS)
+        h = collectives.psum(mesh, [h]).cpu().numpy()
+        # the summed histogram against a host count of every rank's rows
+        sel = keys if keep is None else keys[keep]
+        plain = np.bincount(partition_of(torch.from_numpy(sel),
+                                         DIST_SHARDS).numpy(),
+                            minlength=DIST_SHARDS)
+        if not np.array_equal(h, plain):
+            raise AssertionError(f"zipf={zipf}: histogram {h.tolist()} summed "
+                                 f"over {mesh.world} ranks, {plain.tolist()} "
+                                 "counted on the host")
+        hists_exact.append(True)
+        return h
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    tables = _config5_data(DIST_SHARDS * per, zipf)
+    plan = _config5_plan(tables, zipf, rank_hist)
+    if plan["capacity"] != single_capacity:
+        raise AssertionError(f"zipf={zipf}: capacity {plan['capacity']} over "
+                             f"{mesh.world} ranks, {single_capacity} in one "
+                             "process")
+    if hists_exact != [True, True]:
+        raise AssertionError(f"zipf={zipf}: {len(hists_exact)} histograms "
+                             "checked, 2 planned")
+    step = _config5_program(mesh, plan)
+    args = _config5_args(mesh, tables)
+    gkeys, (sums, counts), gvalid, overflow = step(*args)
+    if bool(overflow):
+        raise AssertionError(f"config-5 step overflowed over ranks "
+                             f"(zipf={zipf})")
+    gathered = [collectives.all_gather(mesh, lane)[0]
+                for lane in (gkeys, sums, counts, gvalid)]
+    del gkeys, sums, counts, gvalid
+    exact = None
+    if mesh.rank == 0:
+        n_keys, lk, rk, lv, rv = tables
+        got_n, got_s = _merged_groups(n_keys, *[[g] for g in gathered])
+        exp_n, exp_s = _per_key_join(n_keys, lk, rk, lv, rv)
+        if not (np.array_equal(got_n, exp_n) and np.array_equal(got_s, exp_s)):
+            raise AssertionError(f"config-5 step over ranks differs from "
+                                 f"numpy (zipf={zipf})")
+        exact = True
+    del gathered
+    bytes0 = GLOBAL_METRICS.snapshot().get(collectives.PEER_BYTES, 0)
+    wall, walls = _median_s(lambda: step(*args), mesh, DIST_REPS)
+    peer_bytes = (GLOBAL_METRICS.snapshot().get(collectives.PEER_BYTES, 0)
+                  - bytes0) / DIST_REPS
+    out = {"capacity": plan["capacity"], "single_process_capacity":
+           single_capacity, "histograms_exact": len(hists_exact),
+           "join_capacity": plan["join_capacity"],
+           "heavy_keys": int(plan["heavy"].size), "exact": exact,
+           "overflow": False, "wall_median_s": wall, "wall_min_s": min(walls),
+           "wall_max_s": max(walls), "runs": DIST_REPS,
+           "rows_per_s": 2 * DIST_SHARDS * per / wall,
+           "peer_bytes_per_step": peer_bytes}
+    if not zipf:
+        shuf, local = dist_ops.make_dist_join_groupby_stages(
+            mesh, capacity=plan["capacity"],
+            join_capacity=plan["join_capacity"],
+            max_groups=plan["max_groups"], agg_funcs=("sum", "count"))
+        shuffled = shuf(*args)
+        out["shuffle_s"], _ = _median_s(lambda: shuf(*args), mesh, DIST_REPS)
+        out["local_s"], _ = _median_s(lambda: local(*shuffled[:6]), mesh,
+                                      DIST_REPS)
+        del shuffled
+        # the step's exchange alone: the key and value lanes of both sides,
+        # each (8 * capacity,) int64 per shard
+        lanes = [torch.zeros(DIST_SHARDS * plan["capacity"], dtype=torch.int64,
+                             device=dev) for _ in mesh.local_devices]
+        bytes0 = GLOBAL_METRICS.snapshot().get(collectives.PEER_BYTES, 0)
+        out["all_to_all_s"], _ = _median_s(
+            lambda: [collectives.all_to_all(mesh, lanes) for _ in range(4)],
+            mesh, DIST_REPS)
+        a2a = (GLOBAL_METRICS.snapshot().get(collectives.PEER_BYTES, 0)
+               - bytes0) / DIST_REPS
+        out["all_to_all_peer_bytes"] = a2a
+        out["all_to_all_peer_gb_per_s"] = a2a / out["all_to_all_s"] / 1e9
+        del lanes
+    del step, args
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated() - mem0
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mp_rank(rank: int, d: str) -> int:
+    """One rank of the ``multiprocess`` phase (started by the parent with
+    ``--rank``): joins the NCCL group through the file store in ``d``,
+    runs both config-5 cases and writes ``rank{rank}.json``."""
+    import torch.distributed as dist
+
+    from gpu_olap_tpu_torch.ops.kernels import _build
+    from gpu_olap_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                  make_mesh)
+
+    with open(os.path.join(d, "spec.json")) as f:
+        spec = json.load(f)
+    world, cards = spec["world"], torch.cuda.device_count()
+    group = initialize_distributed(f"file://{d}/store", world, rank,
+                                   device="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    per_rank = DIST_SHARDS // world
+    mesh = make_mesh(DIST_SHARDS, [f"cuda:{(i // per_rank) % cards}"
+                                   for i in range(DIST_SHARDS)], group=group)
+    _build.load()
+    _build.launches.clear()
+    cases = {name: _mp_case(mesh, dev, name == "zipf", spec[name])
+             for name in ("uniform", "zipf")}
+    launches = {"radix_hist": _build.launches["radix_hist"]}
+    backend = dist.get_backend(group)
+    dist.destroy_process_group()
+    loaded = sorted(m for m in sys.modules if m.split(".")[0]
+                    in ("jax", "jaxlib", "gpu_olap_tpu"))
+    if loaded:
+        raise AssertionError(f"rank {rank} loaded {loaded}")
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "device": str(dev), "backend": backend,
+                   "shards": list(mesh.local_indices), **cases,
+                   "launches": launches}, f)
+    return 0
+
+
+def _run_multiprocess(card: str, capacities: dict) -> dict:
+    """BASELINE config 5 over a process group, one rank per card (one rank
+    holding all eight shards on a one-card machine); every rank killed if
+    one fails or the phase outlives ``MP_TIMEOUT_S``.  Returns the ranks'
+    radix_hist launches."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    world, cards = _mp_world()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    d = tempfile.mkdtemp(prefix="olap_mp_")
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        with open(os.path.join(d, "spec.json"), "w") as f:
+            json.dump({"world": world, **capacities}, f)
+        for r in range(world):
+            logs.append(open(os.path.join(d, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                 d], stdout=logs[-1], stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.perf_counter() - t0 > MP_TIMEOUT_S:
+                break
+            time.sleep(0.2)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            for r in range(world):
+                with open(os.path.join(d, f"rank{r}.log")) as f:
+                    sys.stderr.write(f"--- rank {r}\n{f.read()[-6000:]}\n")
+            raise AssertionError(f"multiprocess: ranks exited {codes} (killed "
+                                 f"past {MP_TIMEOUT_S} s or after another "
+                                 "failed)")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    for r in ranks:
+        if r["backend"] != "nccl" or not r["launches"]["radix_hist"]:
+            raise AssertionError(f"multiprocess rank {r['rank']}: backend "
+                                 f"{r['backend']}, launches {r['launches']}")
+    per_case = {}
+    for name in ("uniform", "zipf"):
+        if any(r[name]["histograms_exact"] != 2 for r in ranks):
+            raise AssertionError(f"multiprocess {name}: a rank's planning "
+                                 "histograms were not both checked")
+        per_case[name] = {
+            "exact": ranks[0][name]["exact"],
+            "capacity": ranks[0][name]["capacity"],
+            "single_process_capacity": capacities[name],
+            **{k: [r[name][k] for r in ranks] for k in ranks[0][name]
+               if k not in ("exact", "capacity", "single_process_capacity",
+                            "overflow")}}
+    _say("multiprocess", card=card, backend="nccl", world=world,
+         cards=cards, shards=DIST_SHARDS, shards_per_rank=DIST_SHARDS // world,
+         ranks_note=(None if world == cards else
+                     f"{cards} cards: {world} ranks, the largest divisor of "
+                     f"{DIST_SHARDS} shards"),
+         rows_per_shard_per_side=DIST_ROWS_PER_SHARD,
+         devices=[r["device"] for r in ranks], **per_case,
+         launches_per_rank=[r["launches"]["radix_hist"] for r in ranks],
+         seconds=seconds)
+    return {"radix_hist": sum(r["launches"]["radix_hist"] for r in ranks)}
 
 
 def _check_dist_kernels(dev, lk: np.ndarray):
@@ -1928,10 +2239,36 @@ def _run_host_surface(dev, card: str) -> None:
          total_seconds=sum(seconds.values()))
 
 
+def _assert_standalone() -> None:
+    if "jax" in sys.modules:
+        raise AssertionError("the port imported jax")
+    loaded = sorted(m for m in sys.modules
+                    if m == "gpu_olap_tpu" or m.startswith("gpu_olap_tpu."))
+    if loaded:
+        raise AssertionError(f"the port loaded the JAX package: {loaded}")
+    _say("standalone", jax_loaded=False, gpu_olap_tpu_loaded=False)
+
+
+def _device_info() -> dict:
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on the "
+                                 "GPU (no arguments: every phase).")
+    ap.add_argument("--only", choices=["multiprocess"],
+                    help="run this phase alone (after the build)")
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("rank_dir", nargs="?", help=argparse.SUPPRESS)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.rank is not None:
+        return _mp_rank(args.rank, args.rank_dir)
     card = _card()
     dev = torch.device("cuda", 0)
     print(card, flush=True)
@@ -1945,6 +2282,17 @@ def main() -> int:
     _say("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds, library=_build.library_path())
     _say("ptxas", kernels=_build.ptxas_report())
+    if args.only == "multiprocess":
+        capacities = {
+            name: _config5_plan(_config5_data(DIST_SHARDS * DIST_ROWS_PER_SHARD,
+                                              name == "zipf"),
+                                name == "zipf", _card_hist(dev))["capacity"]
+            for name in ("uniform", "zipf")}
+        _run_multiprocess(card, capacities)
+        _assert_standalone()
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": _device_info()}), flush=True)
+        return 0
 
     kern = _check_kernels(dev)
     launches = _run_bench(dev, card)
@@ -1952,20 +2300,15 @@ def main() -> int:
     kern.update(join_kern)
     launches.update(join_launches)
     _run_oracle(dev)
-    dist_launches, lk = _run_dist_step(dev, card)
+    dist_launches, lk, capacities = _run_dist_step(dev, card)
     launches.update(dist_launches)
     kern.update(_check_dist_kernels(dev, lk))
     del lk
+    launches["radix_hist"] += _run_multiprocess(card, capacities)["radix_hist"]
     _run_engine_distributed(dev, card)
     _run_streaming(dev, card)
     _run_host_surface(dev, card)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
-    loaded = sorted(m for m in sys.modules
-                    if m == "gpu_olap_tpu" or m.startswith("gpu_olap_tpu."))
-    if loaded:
-        raise AssertionError(f"the port loaded the JAX package: {loaded}")
-    _say("standalone", jax_loaded=False, gpu_olap_tpu_loaded=False)
+    _assert_standalone()
 
     replaces = {"filter_agg": "gpu_olap_tpu/ops/pallas/filter_agg.py:104",
                 "seg_agg": "gpu_olap_tpu/ops/pallas/seg_agg.py:84",
@@ -1984,9 +2327,7 @@ def main() -> int:
                         "bound_by": "bytes", "library_ms": library_ms})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(json.dumps({"ok": True, "device": _device_info()}), flush=True)
     return 0
 
 

@@ -23,7 +23,10 @@ LIMIT / final projection) run on the gathered groups in the host executor.
 What differs from JAX: the sharded tables stay resident per catalog version
 (JAX re-uploads them per query), a shard's join output is cut to its live
 prefix before the aggregation, and the combiner's MIN/MAX partials carry
-their argument's kind, so float MIN/MAX stay exact (ROADMAP C).
+their argument's kind, so float MIN/MAX stay exact (ROADMAP C).  As in JAX
+(whose executor places whole host arrays and reads results back with
+``np.asarray``), the engine over a mesh is single-process: a mesh over a
+process group is refused.
 """
 
 from __future__ import annotations
@@ -129,6 +132,12 @@ class DistributedExecutor:
 
     def __init__(self, catalog, config: EngineConfig, interpreter_cls,
                  mesh: Mesh):
+        if mesh.group is not None:
+            raise ValueError(
+                "the SQL engine over a mesh is single-process, as the JAX "
+                "package's is: build its mesh without group= (this one "
+                f"spans {mesh.world} process(es)); the parallel.dist_ops "
+                "steps run over a process group")
         self.catalog = catalog
         self.config = config
         self._interp_cls = interpreter_cls

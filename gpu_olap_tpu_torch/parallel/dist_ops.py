@@ -3,12 +3,15 @@
 Port of ``gpu_olap_tpu/parallel/dist_ops.py``.  Each ``make_*`` returns a
 callable over per-shard lists with the outputs of the JAX ``make_*``: per-shard
 lists for sharded outputs and one tensor for a replicated one (the overflow
-flag).  A JAX ``shard_map`` body becomes phases split at its collectives,
-each phase a loop over the shards: shuffle (every shard packs, the blocks
-cross the mesh), then the local join and group-by one shard at a time, so a
-shard's match buffer and sort scratch are freed before the next shard's
-exist.  The local operators are the port's ``inner_join``,
-``groupby_aggregate`` and ``compaction_indices``.
+flag, equal on every rank).  Per-shard lists hold the calling process's
+shards (all of them on a mesh without a process group), and every rank of a
+mesh's group calls the step with its own.  A JAX ``shard_map`` body becomes
+phases split at its collectives, each phase a loop over the local shards:
+shuffle (every shard packs, the blocks cross the mesh), then the local join
+and group-by one shard at a time, so a shard's match buffer and sort
+scratch are freed before the next shard's exist.  The local operators are
+the port's ``inner_join``, ``groupby_aggregate`` and
+``compaction_indices``.
 
 The fused steps group only the live prefix of a shard's match buffer (the
 first ``min(total, join_capacity)`` pairs, which is what JAX's buffer
@@ -92,11 +95,12 @@ def make_dist_groupby(mesh: Mesh, agg_specs: Sequence[dict], capacity: int,
     def _dist_groupby(keys, row_valid, *value_cols):
         if len(value_cols) != nvals:
             raise ValueError(f"expected {nvals} value columns")
+        n_local = len(mesh.local_devices)
         rk, rp, rv, _ = shuffle_rows(
-            mesh, keys, [[c[i] for c in value_cols] for i in range(mesh.size)],
+            mesh, keys, [[c[i] for c in value_cols] for i in range(n_local)],
             row_valid, capacity)
         gkeys, results, gvalid, ngroups = [], [[] for _ in agg_specs], [], []
-        for i, dev in enumerate(mesh.devices):
+        for i, dev in enumerate(mesh.local_devices):
             specs = [{"func": s["func"], "values": v, "valid": None,
                       "distinct": False, "acc_dtype": s["acc_dtype"]}
                      for s, v in zip(agg_specs, rp[i])]
@@ -128,14 +132,15 @@ def make_dist_join(mesh: Mesh, capacity: int, join_capacity: int,
         if len(payloads) != n_pay:
             raise ValueError(f"expected {n_pay} payloads")
         lpay, rpay = payloads[:n_left_payloads], payloads[n_left_payloads:]
+        n_local = len(mesh.local_devices)
         slk, slp, slv, _ = shuffle_rows(
-            mesh, lkeys, [[p[i] for p in lpay] for i in range(mesh.size)],
+            mesh, lkeys, [[p[i] for p in lpay] for i in range(n_local)],
             lvalid, capacity)
         srk, srp, srv, _ = shuffle_rows(
-            mesh, rkeys, [[p[i] for p in rpay] for i in range(mesh.size)],
+            mesh, rkeys, [[p[i] for p in rpay] for i in range(n_local)],
             rvalid, capacity)
         keys, lout, rout, valid, totals = [], [], [], [], []
-        for i in range(mesh.size):
+        for i in range(n_local):
             li, ri, out_valid, total, _of, _cnt = join_ops.inner_join(
                 [(slk[i], torch.zeros_like(slv[i]))], slv[i],
                 [(srk[i], torch.zeros_like(srv[i]))], srv[i], join_capacity)
@@ -170,21 +175,21 @@ def make_dist_join_groupby_skew(mesh: Mesh, capacity: int, join_capacity: int,
     heavy_keys = np.asarray(heavy_keys, dtype=np.int64)
 
     def _step(lkeys, lvalid, lval, rkeys, rvalid, rval):
-        ndev = mesh.size
+        n_local = len(mesh.local_devices)
         lheavy = [split_by_heavy(k, heavy_keys) for k in lkeys]
         rheavy = [split_by_heavy(k, heavy_keys) for k in rkeys]
 
         # light keys: hash shuffle
         slk, slp, slv, of_l = shuffle_rows(
-            mesh, lkeys, [[lval[i]] for i in range(ndev)],
-            [lvalid[i] & ~lheavy[i] for i in range(ndev)], capacity)
+            mesh, lkeys, [[lval[i]] for i in range(n_local)],
+            [lvalid[i] & ~lheavy[i] for i in range(n_local)], capacity)
         srk, srp, srv, of_r = shuffle_rows(
-            mesh, rkeys, [[rval[i]] for i in range(ndev)],
-            [rvalid[i] & ~rheavy[i] for i in range(ndev)], capacity)
+            mesh, rkeys, [[rval[i]] for i in range(n_local)],
+            [rvalid[i] & ~rheavy[i] for i in range(n_local)], capacity)
 
         # heavy keys: each shard's heavy build rows, compacted, to all shards
         hb_k, hb_v, hb_valid, of_hb = [], [], [], []
-        for i, dev in enumerate(mesh.devices):
+        for i, dev in enumerate(mesh.local_devices):
             gidx, hb_count = compaction_indices(rvalid[i] & rheavy[i])
             slots = torch.arange(heavy_build_cap, device=dev)
             src = gidx[torch.clamp(slots, 0, gidx.shape[0] - 1)]
@@ -198,7 +203,7 @@ def make_dist_join_groupby_skew(mesh: Mesh, capacity: int, join_capacity: int,
         hb_valid = all_gather(mesh, hb_valid)
 
         outs = []
-        for i, dev in enumerate(mesh.devices):
+        for i, dev in enumerate(mesh.local_devices):
             lkey, lprod, of_j1 = _pair_products(
                 slk[i], slp[i][0], slv[i], srk[i], srp[i][0], srv[i],
                 join_capacity)
@@ -249,18 +254,18 @@ def make_dist_join_groupby_stages(mesh: Mesh, capacity: int,
     """
 
     def _shuffle(lkeys, lvalid, lval, rkeys, rvalid, rval):
-        ndev = mesh.size
+        n_local = len(mesh.local_devices)
         slk, slp, slv, of_l = shuffle_rows(
-            mesh, lkeys, [[lval[i]] for i in range(ndev)], lvalid, capacity)
+            mesh, lkeys, [[lval[i]] for i in range(n_local)], lvalid, capacity)
         srk, srp, srv, of_r = shuffle_rows(
-            mesh, rkeys, [[rval[i]] for i in range(ndev)], rvalid, capacity)
+            mesh, rkeys, [[rval[i]] for i in range(n_local)], rvalid, capacity)
         overflow = pany(mesh, [a | b for a, b in zip(of_l, of_r)])
         return (slk, [p[0] for p in slp], slv, srk, [p[0] for p in srp], srv,
                 overflow)
 
     def _local(slk, slval, slv, srk, srval, srv):
         outs = []
-        for i, dev in enumerate(mesh.devices):
+        for i, dev in enumerate(mesh.local_devices):
             jkey, jval, of_j = _pair_products(slk[i], slval[i], slv[i], srk[i],
                                               srval[i], srv[i], join_capacity)
             g = _group(jkey, jval, max_groups, agg_funcs, dev)

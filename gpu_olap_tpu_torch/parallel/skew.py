@@ -25,7 +25,9 @@ def partition_histogram(keys: torch.Tensor, num_partitions: int) -> torch.Tensor
     """Rows per hash partition (int64 (num_partitions,)), the signal that
     sizes shuffle buckets.  At least 32768 keys over at most 256 partitions
     count on the ``radix_hist`` kernel (a CUDA tensor launches it or
-    raises); smaller inputs take a plain count, as JAX's ``segment_sum``."""
+    raises); smaller inputs take a plain count, as JAX's ``segment_sum``.
+    On a mesh over several processes each rank counts its own keys and the
+    planner sums the counts with ``collectives.psum``."""
     dest = partition_of(keys, num_partitions)
     if keys.shape[0] >= HIST_KERNEL_MIN_KEYS and num_partitions <= 256:
         GLOBAL_METRICS.bump("torch_radix_hist_path")

@@ -37,7 +37,7 @@ from gpu_olap_tpu_torch.parallel import shuffle as tshuffle
 from gpu_olap_tpu_torch.parallel import skew as tskew
 from gpu_olap_tpu_torch.utils.metrics import GLOBAL_METRICS
 
-NDEV = 8
+from dist_arrays import NDEV, skew_arrays, step_arrays
 
 
 @pytest.fixture(scope="module")
@@ -197,9 +197,13 @@ def test_make_mesh_counts_devices():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tmesh.make_mesh(1, ["cuda:0"])
-    tmesh.initialize_distributed(None, 1, 0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmesh.initialize_distributed("localhost:1234", 2, 0)
+    # one process: a no-op, as JAX's; two: NCCL on the card, never gloo
+    assert tmesh.initialize_distributed(None, 1, 0) is None
+    assert tmesh.initialize_distributed() is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tmesh.initialize_distributed("localhost:1234", 2, 0)
+    assert not torch.distributed.is_initialized()
 
 
 def test_shard_rows_pads_like_the_executor():
@@ -388,17 +392,7 @@ def test_dist_join_matches_jax(meshes):
 
 
 def _step_inputs(meshes, kind, seed=3):
-    rng = np.random.default_rng(seed)
-    nl, nr = NDEV * 512, NDEV * 128
-    lk = rng.integers(0, 64, nl).astype(np.int64)
-    rk = np.arange(64, dtype=np.int64).repeat(16)
-    if kind == "float":
-        lv, rv = rng.normal(0, 10, nl), rng.normal(5, 3, nr)
-    else:
-        lv = rng.integers(1, 10, nl).astype(np.int64)
-        rv = rng.integers(1, 5, nr).astype(np.int64)
-    return [_both(meshes, a) for a in (lk, np.ones(nl, bool), lv, rk,
-                                       np.ones(nr, bool), rv)]
+    return [_both(meshes, a) for a in step_arrays(kind, seed)]
 
 
 @pytest.mark.parametrize("kind", ["int", "float"])
@@ -446,17 +440,8 @@ def test_dist_join_groupby_stages_match_jax(meshes):
 
 
 def _skew_inputs(meshes):
-    rng = np.random.default_rng(9)
-    n = NDEV * 1024
-    lk = np.where(rng.random(n) < 0.6, 7, rng.integers(0, 64, n)).astype(
-        np.int64)
-    lv = rng.integers(1, 10, n).astype(np.int64)
-    rk = np.resize(np.arange(64, dtype=np.int64).repeat(4), NDEV * 32)
-    rv = rng.integers(1, 5, rk.shape[0]).astype(np.int64)
-    heavy = tskew.detect_heavy_keys(lk, row_threshold=n // 10)
-    args = [_both(meshes, a) for a in (lk, np.ones(n, bool), lv, rk,
-                                       np.ones(rk.shape[0], bool), rv)]
-    return args, heavy
+    arrays, heavy = skew_arrays()
+    return [_both(meshes, a) for a in arrays], heavy
 
 
 def test_dist_join_groupby_skew_matches_jax(meshes):

@@ -6,7 +6,8 @@
     itself is allowed).
 (b) With ``jax`` and ``gpu_olap_tpu`` blocked from import, the port answers
     a filtered aggregate, a GROUP BY, a join and a UNION ALL on the CPU, as
-    numpy does, and its entry points and CLI run.
+    numpy does, its entry points and CLI run, and two ranks of a gloo group
+    run a distributed join + GROUP BY step as numpy does.
 (c) The port's own parser, optimizer and planner give the JAX package's
     ``explain`` text for every query of the port's parity corpus.
 """
@@ -87,7 +88,7 @@ def test_the_ast_check_catches_a_forbidden_import():
     assert "gpu_olap_tpu_torch.plan.physical" in names
 
 
-_BLOCKED_RUN = textwrap.dedent("""
+_BLOCKER = textwrap.dedent("""
     import sys
 
     class _Block:
@@ -97,6 +98,47 @@ _BLOCKED_RUN = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, _Block())
+""")
+
+# one rank of a 2-rank gloo group: a make_dist_join_groupby step over 8
+# shards, each rank's groups summed across ranks and held against numpy
+_RANK_RUN = _BLOCKER + textwrap.dedent("""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from gpu_olap_tpu_torch.parallel import collectives, dist_ops, mesh
+
+    def run_rank(d, rank):
+        group = mesh.initialize_distributed(f"file://{d}/store", 2, rank,
+                                            device="cpu")
+        m = mesh.make_mesh(8, ["cpu"] * 8, group=group)
+        rng = np.random.default_rng(0)
+        lk, rk = rng.integers(0, 40, 4096), rng.integers(0, 40, 1024)
+        lv, rv = rng.integers(1, 9, 4096), rng.integers(1, 9, 1024)
+        step = dist_ops.make_dist_join_groupby(
+            m, capacity=1024, join_capacity=65536, max_groups=64,
+            agg_funcs=("sum", "count"))
+        gk, (s, c), gv, of = step(
+            mesh.shard_rows(m, lk), mesh.shard_rows(m, np.ones(4096, bool)),
+            mesh.shard_rows(m, lv), mesh.shard_rows(m, rk),
+            mesh.shard_rows(m, np.ones(1024, bool)), mesh.shard_rows(m, rv))
+        assert len(gk) == 4 and not bool(of)
+        per_key = torch.zeros((2, 40), dtype=torch.int64)
+        for k, sv, cv, v in zip(gk, s, c, gv):
+            per_key[0].index_add_(0, k[v], sv[v])
+            per_key[1].index_add_(0, k[v], cv[v])
+        total = collectives.psum(m, [per_key]).numpy()
+        cl, cr = np.bincount(lk, minlength=40), np.bincount(rk, minlength=40)
+        sl = np.bincount(lk, weights=lv, minlength=40).astype(np.int64)
+        sr = np.bincount(rk, weights=rv, minlength=40).astype(np.int64)
+        assert (total[0] == sl * sr).all() and (total[1] == cl * cr).all()
+        dist.destroy_process_group()
+
+    if len(sys.argv) == 3:
+        run_rank(sys.argv[1], int(sys.argv[2]))
+""")
+
+_BLOCKED_RUN = _BLOCKER + textwrap.dedent("""
 
     import numpy as np
     from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
@@ -151,6 +193,18 @@ _BLOCKED_RUN = textwrap.dedent("""
         assert entry.dryrun_multichip(4, ["cpu"] * 4)["retries"] >= 1
     assert cli.main(["--device", "cpu", "SELEC 1"]) == 0
 
+    # a 2-rank gloo group: this process is rank 0, a blocked peer rank 1
+    import subprocess
+    import tempfile
+    d = tempfile.mkdtemp(dir=".")
+    peer = subprocess.Popen([sys.executable, "-c", RANK_RUN, d, "1"])
+    try:
+        exec(RANK_RUN)
+        run_rank(d, 0)
+        assert peer.wait(timeout=60) == 0
+    finally:
+        peer.kill()
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "gpu_olap_tpu"))
     assert not loaded, loaded
@@ -160,7 +214,8 @@ _BLOCKED_RUN = textwrap.dedent("""
 
 def test_port_runs_with_the_jax_package_blocked(tmp_path):
     env = dict(os.environ, PYTHONPATH=ROOT)
-    res = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=tmp_path,
+    script = f"RANK_RUN = {_RANK_RUN!r}\n" + _BLOCKED_RUN
+    res = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
