@@ -22,7 +22,8 @@ and over 1 shard (every key in bin 0), and 200M random int32 keys at shifts
 first checked exactly against the plain version at every shape, and each
 version's ``ptxas`` line (registers, static shared memory, spills) is
 printed.  The last line holds, at each shape, each version's median beside
-the bound (4 bytes a key read once at 3.35 TB/s), the median gap between
+the bound (4 bytes a key read once at the card's memory rate from
+``utils.metrics``), the median gap between
 its two times in one round (its spread against itself), the median of the
 rounds' new-minus-old gaps, and the rounds in which new was the faster.
 
@@ -45,9 +46,10 @@ import tempfile
 
 import torch
 
+from bench_dist_torch import config5_data
 from chip_smoke import (DIST_ROWS_PER_SHARD, DIST_SHARDS, FILTER_ROWS,
                         GROUPBY_GROUPS, GROUPBY_ROWS, RADIX_ROWS, _bound_ms,
-                        _card, _config5_data, _cuda_ms, _max_abs_err)
+                        _card, _cuda_ms, _max_abs_err)
 
 I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 MAX_GROUPS = 1 << 23
@@ -212,7 +214,7 @@ def _radix_shapes(dev):
     (``chip_smoke.py``'s uniform probe keys), then 200M random keys."""
     from gpu_olap_tpu_torch.ops.hashing import partition_of
 
-    _, lk, *_ = _config5_data(DIST_SHARDS * DIST_ROWS_PER_SHARD, False)
+    _, lk, *_ = config5_data(DIST_SHARDS * DIST_ROWS_PER_SHARD, False)
     lk_d = torch.from_numpy(lk).to(dev)
     shapes = [("one_bin", partition_of(lk_d, 1), (0,)),
               ("eight_bins", partition_of(lk_d, DIST_SHARDS), (0,))]

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                      # about 12 minutes, one H100
+    python3 chip_smoke.py                      # about 14 minutes, one H100
     python3 chip_smoke.py --only multiprocess  # the build and phase 11 alone
 
 Phases, each printing one JSON line:
@@ -16,19 +16,29 @@ Phases, each printing one JSON line:
    below the group count, negative values, the INT32_MAX sentinel group,
    an unaligned view; filter_agg: every operator, 0 to 8 value columns,
    aliased and repeated columns, unaligned views, n_valid cuts, no match,
-   ``wants`` masks, 5M rows over many blocks; radix_hist: one bin over
+   ``wants`` masks, 5M rows over many blocks, and its two public wrappers
+   ``filter_count_sum_i32`` and ``filter_count_sum_exact_i32``; radix_hist:
+   one bin over
    four counter flushes of a full wave, every thread's counter at the flush
    limit in all 256 bins, views at offsets 1-3 of lengths 1-7, each case
    twice on one stream and once on a second stream);
-4. kernels_main_shapes: filter_agg and seg_agg against their plain versions
-   at the bench shapes (200M rows; 100M rows x 4M groups), with both times
-   and the bound;
+4. kernels_main_shapes: filter_agg (and its two wrappers) and seg_agg
+   against their plain versions at the bench shapes (200M rows; 100M rows
+   x 4M groups), with both times and the bound (the card's memory rate
+   from ``utils.metrics``);
 5. engine_bench: ``TorchOlapEngine(device="cuda")`` runs the filter and
-   GROUP BY bench queries (exact against numpy, launch counts > 0);
+   GROUP BY bench queries on ``bench_torch.py``'s tables (exact against
+   numpy, launch counts > 0); then bench: the bench surface as a user runs
+   it, ``bench_torch.py --quick`` (every config in its own process, the
+   1B-row GROUP BY at 4M rows) and ``bench_dist_torch.py --devices 1 8
+   --rows-per-dev 65536``, uniform and ``--zipf``: each exits 0 with its
+   one JSON line, every config exact, filter_agg, seg_agg and radix_hist
+   launched on their configs;
 6. engine_join: the join path at full width, each query exact against
    numpy on the route the JAX engine takes: a materializing stream join
    and a GROUP BY over its pairs (100M x 100M), then the three bench joins
-   (join 100M x 100M, join_lookup 100M x 10M, sortmerge 25M x 25M);
+   (join 100M x 100M, join_lookup 100M x 10M, sortmerge 25M x 25M, the
+   last two on ``bench_torch.py``'s tables);
    stream_compact and expand_fill must launch;
 7. kernels_join_shapes: stream_compact and expand_fill against their plain
    versions on the inputs the stream join gave them, with both times, the
@@ -37,7 +47,7 @@ Phases, each printing one JSON line:
 8. engine_vs_oracle: small single-table, join and UNION ALL queries against
    the CPU oracle;
 9. dist_step (uniform, then Zipf): BASELINE config 5's distributed join +
-   group-by step (``bench_dist.py``'s data and capacity planning, through
+   group-by step (``bench_dist_torch.py``'s data and capacity planning, through
    ``partition_histogram`` and so the radix_hist kernel) on a mesh of eight
    logical shards on the card, 2^22 rows per shard per side, exact against
    numpy with no overflow;
@@ -117,22 +127,21 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+import bench_dist_torch as bdt
+import bench_torch as bt
+
 I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 
-# H100 SXM device-memory rate (NVIDIA's data sheet): a kernel's bound_ms is
-# the bytes its function must move (each input read once, each output
-# written once) at this rate
-HBM_BYTES_PER_S = 3.35e12
-# BASELINE configs 1 and 2 (bench.py:163-208) at their full size
-FILTER_ROWS = 200_000_000
-GROUPBY_ROWS = 100_000_000
-GROUPBY_GROUPS = 4_000_000
-# bench.py's join configs (bench.py:289-358) at their full size
-# (bench.py:571-573); the stream-join queries use the `join` tables
-JOIN_ROWS = 100_000_000            # join: l and r
+# the bench configs at their full size (bench_torch.py, bench.py's sizes):
+# configs 1 and 2, then the joins; the stream-join queries use the `join`
+# tables
+_FULL = bt.config_sizes(quick=False, scale=1.0)
+(FILTER_ROWS,) = _FULL["filter_agg"]
+GROUPBY_ROWS, GROUPBY_GROUPS = _FULL["groupby"]
+JOIN_ROWS = _FULL["join"][0]            # join: l and r
 JOIN_KEYS = JOIN_ROWS // 2
-LOOKUP_ROWS = (100_000_000, 10_000_000)
-SORTMERGE_ROWS = 25_000_000
+LOOKUP_ROWS = _FULL["join_lookup"]
+SORTMERGE_ROWS = _FULL["sortmerge"][0]
 # warm runs per bench query; the engine line reports their median
 REPS = 11
 # BASELINE config 5 (bench_dist.py): 8 logical shards on the card, 2^22 rows
@@ -149,9 +158,7 @@ MP_TIMEOUT_S = 300
 # out-of-core: bench.py's 1B-row GROUP BY table (bench.py:211-240), written
 # in pieces; the grace join's two tables, each above the 10M-row default
 # cache threshold
-STREAM_ROWS = 1_000_000_000
-STREAM_GROUPS = 4_000_000
-STREAM_PIECE = 50_000_000
+STREAM_ROWS, STREAM_GROUPS = _FULL["groupby_1b"]
 GRACE_ROWS = 20_000_000
 # the entry points: entry()'s step at the groupby bench width (keys in
 # [0, 128)); the CLI's Parquet table, the largest the default config caches
@@ -160,6 +167,8 @@ ENTRY_ROWS = 100_000_000
 ENTRY_REPS = 5
 CLI_ROWS = 8_388_608
 CLI_KEYS = 262_144
+# the bench phase: each script run is stopped past this many seconds
+BENCH_TIMEOUT_S = 600
 
 
 def _say(phase: str, **kv) -> None:
@@ -198,7 +207,11 @@ def _cuda_ms(fn, reps: int) -> float:
 
 
 def _bound_ms(nbytes: int) -> float:
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    """Milliseconds to move ``nbytes`` (each input read once, each output
+    written once) at the card's memory rate from ``utils.metrics``."""
+    from gpu_olap_tpu_torch.utils.metrics import detect_hbm_bandwidth
+
+    return nbytes / detect_hbm_bandwidth(torch.device("cuda", 0)) * 1e3
 
 
 def _max_abs_err(a, b) -> int:
@@ -460,7 +473,38 @@ def _radix_cases(dev):
     return cases
 
 
+def _count_sum_cases(dev):
+    """(name, wrapper, values, threshold, n_valid): the two public wrappers
+    of filter_agg at the TPU kernel's test shapes and validity cut."""
+    g = np.random.default_rng(0)
+    v = torch.from_numpy(g.integers(0, 1000, 100_000).astype(np.int32)).to(dev)
+    g = np.random.default_rng(1)
+    big = torch.from_numpy(g.integers(0, 1 << 30, 70_000).astype(np.int32)
+                           ).to(dev)
+    return [(f"{fn}_{case}", fn, vals, thr, n_valid)
+            for fn in ("filter_count_sum_i32", "filter_count_sum_exact_i32")
+            for case, vals, thr, n_valid in (("n_valid_cut", v, 500, 95_000),
+                                             ("exact_2p30", big, 1 << 29,
+                                              70_000))]
+
+
+def _check_count_sum(fa, name: str, fn: str, v, thr: int, n_valid: int):
+    """A wrapper of filter_agg on the card against the same wrapping of the
+    plain version: count and sum exact, the sum's type the wrapper's."""
+    count, total = getattr(fa, fn)(v, thr, n_valid)
+    pc, ((ps, _, _),) = fa.filter_agg_plain(v, "gt", thr, (v,), n_valid)
+    if fn == "filter_count_sum_i32":
+        ps = ps.to(torch.float64)
+    torch.cuda.synchronize()
+    if total.dtype != ps.dtype or (int(count), total.item()) != \
+            (int(pc), ps.item()):
+        raise AssertionError(f"{fn} case {name}: ({int(count)}, "
+                             f"{total.item()} {total.dtype}) vs plain "
+                             f"({int(pc)}, {ps.item()} {ps.dtype})")
+
+
 def _check_kernels(dev):
+    from gpu_olap_tpu_torch.ops.kernels import filter_agg as fa
     from gpu_olap_tpu_torch.ops.kernels import join_stream as js
     from gpu_olap_tpu_torch.ops.kernels import partition as rp
     from gpu_olap_tpu_torch.ops.kernels.filter_agg import (
@@ -476,6 +520,9 @@ def _check_kernels(dev):
         torch.cuda.synchronize()
         if err:
             raise AssertionError(f"filter_agg case {name}: max |err| {err}")
+    wrapper_cases = _count_sum_cases(dev)
+    for name, fn, v, thr, n_valid in wrapper_cases:
+        _check_count_sum(fa, name, fn, v, thr, n_valid)
     for name, k, v, mg in _seg_agg_cases(dev):
         got = seg_agg_sorted_i32(k, v, mg)
         exp = seg_agg_plain(k, v, mg)
@@ -517,6 +564,7 @@ def _check_kernels(dev):
                 raise AssertionError(f"radix_hist case {name} shift {shift}: "
                                      f"max |err| {err}")
     _say("kernels_edge_cases", filter_agg=len(_filter_agg_cases(dev)),
+         filter_count_sum_wrappers=len(wrapper_cases) + 2,
          seg_agg=len(_seg_agg_cases(dev)),
          stream_compact=len(compact_cases), expand_fill=len(expand_cases),
          radix_hist=5 * len(radix_cases), radix_hist_calls_per_case=3,
@@ -530,6 +578,8 @@ def _check_kernels(dev):
     exp = filter_agg_plain(v, "gt", 500, (v,))
     fa_err = _max_abs_err(got, exp)
     torch.cuda.synchronize()
+    for fn in ("filter_count_sum_i32", "filter_count_sum_exact_i32"):
+        _check_count_sum(fa, "main_shape", fn, v, 500, FILTER_ROWS - 12_345)
     fa_ms = _cuda_ms(lambda: filter_agg_i32(v, "gt", 500, (v,)), 20)
     fa_plain_ms = _cuda_ms(lambda: filter_agg_plain(v, "gt", 500, (v,)), 5)
     del v
@@ -621,32 +671,26 @@ def _timed_query(eng, sql: str, rows: int) -> dict:
 
 
 def _run_bench(dev, card: str):
-    """The filter and GROUP BY bench queries (BASELINE configs 1 and 2)."""
-    from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+    """The filter and GROUP BY bench queries (BASELINE configs 1 and 2):
+    ``bench_torch.py``'s tables, SQL, engine settings and exact answers."""
     from gpu_olap_tpu_torch.ops.kernels import _build
 
-    # the settings and SQL of bench.py's configs 1 and 2, one engine each
-    cfg = dict(max_groups=1 << 23, min_shape_bucket=1 << 16,
-               enable_cache=False)
-    fa_eng = TorchOlapEngine(EngineConfig(**cfg), device=dev)
-    rng = np.random.default_rng(0)
-    fk = rng.integers(0, 1 << 20, FILTER_ROWS).astype(np.int64)
-    fv = rng.integers(0, 1000, FILTER_ROWS).astype(np.int64)
-    fa_eng.register("t", {"k": fk, "v": fv})
-    del fk
-    gb_eng = TorchOlapEngine(EngineConfig(**cfg), device=dev)
-    rng = np.random.default_rng(1)
-    gk = rng.integers(0, GROUPBY_GROUPS, GROUPBY_ROWS).astype(np.int64)
-    gv = rng.integers(0, 1_000_000, GROUPBY_ROWS).astype(np.int64)
-    gb_eng.register("t", {"k": gk, "v": gv})
-    fa_sql = "SELECT COUNT(*) AS n, SUM(v) AS s FROM t WHERE v > 500"
-    gb_sql = "SELECT k, SUM(v) AS s, MIN(v) AS mn, MAX(v) AS mx FROM t GROUP BY k"
+    fa_cfg, gb_cfg = bt.CONFIGS["filter_agg"], bt.CONFIGS["groupby"]
+    fa_tables = fa_cfg.tables(FILTER_ROWS)
+    fa_exp = fa_cfg.expected(fa_tables)
+    fa_eng = bt.make_engine(dev)
+    fa_eng.register("t", fa_tables["t"])
+    gb_tables = gb_cfg.tables(GROUPBY_ROWS, GROUPBY_GROUPS)
+    gb_exp = gb_cfg.expected(gb_tables)
+    gb_eng = bt.make_engine(dev)
+    gb_eng.register("t", gb_tables["t"])
+    del fa_tables, gb_tables
 
     # the main path: launch counts from this run only
     _build.launches.clear()
     t0 = time.perf_counter()
-    fa_res = fa_eng.query(fa_sql)
-    gb_res = gb_eng.query(gb_sql)
+    fa_res = fa_eng.query(fa_cfg.sql)
+    gb_res = gb_eng.query(gb_cfg.sql)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = {k: _build.launches[k] for k in ("filter_agg", "seg_agg")}
@@ -655,43 +699,109 @@ def _run_bench(dev, card: str):
             raise AssertionError(f"backend {r.metrics['backend']}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the path did not launch: {launches}")
-
-    # exact numpy references
-    m = fv > 500
-    got = fa_res.to_pydict()
-    if (int(got["n"][0]), int(got["s"][0])) != (int(m.sum()),
-                                                int(fv[m].sum())):
-        raise AssertionError("filter_agg query result differs from numpy")
-    del m
-    packed = (gk << 20) | gv  # v < 2^20: (k, v) order in one int64
-    packed.sort()
-    keys = packed >> 20
-    vals = packed & ((1 << 20) - 1)
-    starts = np.flatnonzero(np.concatenate([[True], keys[1:] != keys[:-1]]))
-    ends = np.concatenate([starts[1:], [len(keys)]]) - 1
-    exp_s = np.bincount(gk, weights=gv)  # exact below 2^53
-    present = np.bincount(gk) > 0
-    del packed, gk
-    out = gb_res.to_pandas().sort_values("k").reset_index(drop=True)
-    ok = (np.array_equal(out["k"].to_numpy(), keys[starts])
-          and np.array_equal(out["s"].to_numpy(),
-                             exp_s[present].astype(np.int64))
-          and np.array_equal(out["mn"].to_numpy(), vals[starts])
-          and np.array_equal(out["mx"].to_numpy(), vals[ends]))
-    if not ok:
-        raise AssertionError("groupby query result differs from numpy")
-    n_groups = len(starts)
-    del keys, vals, starts, ends, exp_s, present
+    bt.check_answer("filter_agg", fa_res, fa_exp)
+    bt.check_answer("groupby", gb_res, gb_exp)
+    n_groups = len(gb_exp["k"])
+    del gb_exp
 
     _say("engine_bench", card=card, cold_seconds_both=cold_s,
-         filter_agg=_timed_query(fa_eng, fa_sql, FILTER_ROWS),
+         filter_agg=_timed_query(fa_eng, fa_cfg.sql, FILTER_ROWS),
          groupby={"groups": n_groups,
-                  **_timed_query(gb_eng, gb_sql, GROUPBY_ROWS)},
+                  **_timed_query(gb_eng, gb_cfg.sql, GROUPBY_ROWS)},
          peak_device_bytes=torch.cuda.max_memory_allocated(),
          launches=launches, exact=True)
-    del fa_eng, gb_eng, fa_res, gb_res, fv, gv
+    del fa_eng, gb_eng, fa_res, gb_res
     torch.cuda.empty_cache()
     return launches
+
+
+def _script(argv, what: str) -> tuple:
+    """``python3 argv...`` from the repo root as a user runs it: exit 0 and
+    one JSON line with ``bench.py``'s keys; returns (line, seconds).  Past
+    ``BENCH_TIMEOUT_S`` it gets SIGTERM (the scripts stop their children on
+    it), then SIGKILL."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, *argv], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        raise AssertionError(f"{what}: still running past {BENCH_TIMEOUT_S} s")
+    if proc.returncode:
+        sys.stderr.write(err[-8000:])
+        raise AssertionError(f"{what}: exit {proc.returncode}")
+    lines = out.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"{what}: {len(lines)} lines on stdout")
+    line = json.loads(lines[0])
+    if list(line) != ["metric", "value", "unit", "vs_baseline"]:
+        raise AssertionError(f"{what}: line {line}")
+    return line, time.perf_counter() - t0
+
+
+def _results(path: str) -> dict:
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           path)) as f:
+        return json.load(f)
+
+
+def _run_bench_scripts(card: str) -> None:
+    """The bench surface as a user runs it: ``bench_torch.py --quick`` (every
+    config, each in its own process) and ``bench_dist_torch.py --devices 1 8
+    --rows-per-dev 65536``, uniform and ``--zipf``.  Each must exit 0 with
+    its one line, every config exact, filter_agg launched in filter_agg,
+    seg_agg in groupby and radix_hist in bench_dist_torch."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    line, secs = _script(["bench_torch.py", "--quick"], "bench_torch.py")
+    saved = _results("bench_results_torch_quick.json")
+    if set(saved["statuses"].values()) != {"ok"} or \
+            set(saved["results"]) != set(bt.CONFIG_ORDER):
+        raise AssertionError(f"bench_torch.py: statuses {saved['statuses']}")
+    configs = {}
+    for name, res in saved["results"].items():
+        want = "torch-streaming" if name == "groupby_1b" else "torch-cuda"
+        if res["exact"] is not True or not res["backend"].startswith(want):
+            raise AssertionError(f"bench_torch.py {name}: {res['backend']}, "
+                                 f"exact {res['exact']}")
+        configs[name] = {k: res.get(k) for k in (
+            "rows", "seconds", "seconds_median", "rows_per_sec",
+            "exec_seconds", "sol_frac", "backend", "launches")}
+    _need_launch(saved["results"]["filter_agg"]["launches"], ["filter_agg"],
+                 "bench_torch.py filter_agg")
+    _need_launch(saved["results"]["groupby"]["launches"], ["seg_agg"],
+                 "bench_torch.py groupby")
+    dist = {}
+    for zipf in (False, True):
+        what = "bench_dist_torch.py" + (" --zipf" if zipf else "")
+        dline, dsecs = _script(
+            ["bench_dist_torch.py", "--devices", "1", str(DIST_SHARDS),
+             "--rows-per-dev", "65536"] + (["--zipf"] if zipf else []), what)
+        dsaved = _results("bench_dist_torch_zipf.json" if zipf
+                          else "bench_dist_torch.json")
+        rows = dsaved["results"]
+        if [r["ndev"] for r in rows] != [1, DIST_SHARDS] or \
+                any(r["exact"] is not True for r in rows):
+            raise AssertionError(f"{what}: {rows}")
+        b5 = sum(r["launches"]["radix_hist"] for r in rows)
+        if not b5:
+            raise AssertionError(f"{what}: radix_hist did not launch")
+        dist["zipf" if zipf else "uniform"] = {
+            "line": dline, "seconds": dsecs, "radix_hist_launches": b5,
+            "rows_per_sec": [r["rows_per_sec"] for r in rows],
+            "capacity": [r["shuffle_capacity"] for r in rows]}
+    _say("bench", card=card, bench_torch={"line": line, "seconds": secs,
+                                          "configs": configs},
+         bench_dist_torch=dist, seconds=time.perf_counter() - t0, exact=True)
 
 
 @contextmanager
@@ -772,15 +882,6 @@ def _check_join_kernels(args: dict):
     return out
 
 
-def _join_engine(dev, expansion: float):
-    from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
-
-    # bench.py's _engine settings
-    return TorchOlapEngine(EngineConfig(
-        join_expansion=expansion, max_groups=1 << 23,
-        min_shape_bucket=1 << 16, enable_cache=False), device=dev)
-
-
 def _routed(eng, sql: str, route: str):
     """One run of ``sql`` that must take the device route ``route`` (the
     route the JAX engine takes for it) on the card."""
@@ -819,7 +920,7 @@ def _run_joins(dev, card: str):
     queries = {}
 
     # -- the `join` tables (bench_join, seed 2) with value columns ---------
-    eng = _join_engine(dev, 2.2)
+    eng = bt.make_engine(dev, bt.CONFIGS["join"].join_expansion)
     rng = np.random.default_rng(2)
     lk = rng.integers(0, JOIN_KEYS, JOIN_ROWS).astype(np.int64)
     rk = rng.integers(0, JOIN_KEYS, JOIN_ROWS).astype(np.int64)
@@ -892,42 +993,22 @@ def _run_joins(dev, card: str):
     del eng
     torch.cuda.empty_cache()
 
-    # -- join_lookup: unique build keys (bench_join_lookup, seed 2) ---------
-    nl, nr = LOOKUP_ROWS
-    eng = _join_engine(dev, 1.25)
-    rng = np.random.default_rng(2)
-    lk = rng.integers(0, nr, nl).astype(np.int64)
-    lv = rng.integers(0, 1000, nl).astype(np.int64)
-    rw = rng.integers(0, 1000, nr).astype(np.int64)
-    eng.register("l", {"k": lk, "v": lv})
-    eng.register("r", {"k": np.arange(nr, dtype=np.int64), "w": rw})
-    sql = "SELECT COUNT(*) AS n, SUM(l.v + r.w) AS s FROM l JOIN r ON l.k = r.k"
-    _exact(sql, _routed(eng, sql, sorted_r).to_pydict(), {
-        "n": [nl], "s": [int(lv.sum() + rw[lk].sum())]})
-    del lk, lv, rw
-    queries["join_lookup"] = _per_query(eng, sql, nl + nr, sorted_r,
-                                        {"matches": nl})
-    del eng
-    torch.cuda.empty_cache()
-
-    # -- sortmerge: ~4 duplicates per key (bench_sortmerge, seed 3) ---------
-    n = SORTMERGE_ROWS
-    nkeys = n // 4
-    eng = _join_engine(dev, 2.5)
-    rng = np.random.default_rng(3)
-    lk = rng.integers(0, nkeys, n).astype(np.int64)
-    rk = rng.integers(0, nkeys, n).astype(np.int64)
-    eng.register("l", {"k": lk})
-    eng.register("r", {"k": rk})
-    sql = "SELECT COUNT(*) AS n FROM l JOIN r ON l.k = r.k"
-    n_pairs = int((np.bincount(lk, minlength=nkeys)
-                   * np.bincount(rk, minlength=nkeys)).sum())
-    _exact(sql, _routed(eng, sql, sorted_r).to_pydict(), {"n": [n_pairs]})
-    del lk, rk
-    queries["sortmerge"] = _per_query(eng, sql, 2 * n, sorted_r,
-                                      {"matches": n_pairs})
-    del eng
-    torch.cuda.empty_cache()
+    # -- join_lookup (unique build keys) and sortmerge (~4 rows a key):
+    # bench_torch.py's tables, SQL and answers
+    for name, size in (("join_lookup", LOOKUP_ROWS),
+                       ("sortmerge", (SORTMERGE_ROWS,) * 2)):
+        cfg = bt.CONFIGS[name]
+        tables = cfg.tables(*size)
+        expected = cfg.expected(tables)
+        eng = bt.make_engine(dev, cfg.join_expansion)
+        for tname, cols in tables.items():
+            eng.register(tname, cols)
+        del tables
+        bt.check_answer(name, _routed(eng, cfg.sql, sorted_r), expected)
+        queries[name] = _per_query(eng, cfg.sql, sum(size), sorted_r,
+                                   {"matches": expected["n"][0]})
+        del eng
+        torch.cuda.empty_cache()
 
     _say("engine_join", card=card, setup_seconds_join_tables=setup_s,
          cold_seconds_join_tables=cold_s, queries=queries,
@@ -1011,93 +1092,10 @@ def _run_oracle(dev):
 # the distributed path: BASELINE config 5 on a logical mesh
 # ---------------------------------------------------------------------------
 
-def _config5_data(n: int, zipf: bool):
-    """``bench_dist.py``'s tables (seed 0, ``n_keys = n // 16``): probe keys
-    uniform or Zipf(1.5), build keys uniform, values in [1, 100)."""
-    rng = np.random.default_rng(0)
-    n_keys = max(n // 16, 64)
-    if zipf:
-        # a=1.5: the hot key carries ~38 % of the probe rows
-        lk = np.clip(rng.zipf(1.5, n).astype(np.int64), 1, n_keys) - 1
-    else:
-        lk = rng.integers(0, n_keys, n).astype(np.int64)
-    rk = rng.integers(0, n_keys, n).astype(np.int64)
-    lv = rng.integers(1, 100, n).astype(np.int64)
-    rv = rng.integers(1, 100, n).astype(np.int64)
-    return n_keys, lk, rk, lv, rv
-
-
-def _per_key_join(n_keys, lk, rk, lv, rv):
-    """Per join key: COUNT(*) and SUM(l.v * r.v) of the inner join, from
-    each side's per-key counts and sums (exact in int64)."""
-    cl = np.bincount(lk, minlength=n_keys)
-    cr = np.bincount(rk, minlength=n_keys)
-    sl = np.bincount(lk, weights=lv, minlength=n_keys).astype(np.int64)
-    sr = np.bincount(rk, weights=rv, minlength=n_keys).astype(np.int64)
-    return cl * cr, sl * sr
-
-
 def _config5_plan(tables, zipf: bool, hist) -> dict:
-    """``bench_dist.py``'s capacity planning (``bench_dist.py:55-81``):
-    ``hist(keys, keep)`` is the destination histogram (numpy) of the rows
-    of the global array ``keys`` that ``keep`` selects (None: every row),
-    counted on the card through ``partition_histogram``, so radix_hist."""
-    from gpu_olap_tpu_torch.parallel import skew
-
-    ndev, per = DIST_SHARDS, DIST_ROWS_PER_SHARD
-    n = ndev * per
-    n_keys, lk, rk, _, _ = tables
-    heavy = np.zeros(0, dtype=np.int64)
-    light = None
-    if zipf:
-        heavy = skew.detect_heavy_keys(lk, row_threshold=max(256, per // 4))
-        light = ~np.isin(lk, heavy)
-    capacity = max(
-        skew.recommend_capacity(hist(lk, light), ndev,
-                                headroom=1.6 if zipf else 1.3),
-        skew.recommend_capacity(hist(rk, None), ndev, headroom=1.3))
-    return {"capacity": capacity,
-            "join_capacity": per * (32 if zipf else 24),
-            "max_groups": min(n_keys, 1 << 20), "heavy": heavy,
-            "heavy_build_cap": max(256, 4 * max(n // n_keys, 1)
-                                   * int(heavy.size)),
-            "heavy_probe_share": float(np.isin(lk, heavy).mean())}
-
-
-def _card_hist(dev):
-    """The single-process planner's histogram: every selected row on the
-    card at once."""
-    from gpu_olap_tpu_torch.parallel import skew
-
-    def hist(keys, keep):
-        d = torch.from_numpy(keys if keep is None else keys[keep]).to(dev)
-        return skew.partition_histogram(d, DIST_SHARDS).cpu().numpy()
-
-    return hist
-
-
-def _config5_program(mesh, plan: dict):
-    """The config-5 step over ``mesh``: the skew step when the plan has
-    heavy keys, else the fused step."""
-    from gpu_olap_tpu_torch.parallel import dist_ops
-
-    cfg = dict(capacity=plan["capacity"], join_capacity=plan["join_capacity"],
-               max_groups=plan["max_groups"], agg_funcs=("sum", "count"))
-    if plan["heavy"].size:
-        return dist_ops.make_dist_join_groupby_skew(
-            mesh, **cfg, heavy_keys=plan["heavy"],
-            heavy_build_cap=plan["heavy_build_cap"])
-    return dist_ops.make_dist_join_groupby(mesh, **cfg)
-
-
-def _config5_args(mesh, tables):
-    """The step's six per-shard arguments: this process's shards."""
-    from gpu_olap_tpu_torch.parallel.mesh import shard_rows
-
-    _, lk, rk, lv, rv = tables
-    valid = shard_rows(mesh, np.ones(lk.shape[0], bool), False)
-    return (shard_rows(mesh, lk), valid, shard_rows(mesh, lv),
-            shard_rows(mesh, rk), valid, shard_rows(mesh, rv))
+    """``bench_dist_torch.py``'s capacity planning at this script's mesh."""
+    return bdt.plan_capacity(tables, DIST_SHARDS, DIST_ROWS_PER_SHARD, zipf,
+                             hist)
 
 
 def _config5_step(dev, zipf: bool):
@@ -1106,27 +1104,15 @@ def _config5_step(dev, zipf: bool):
     host tables)."""
     from gpu_olap_tpu_torch.parallel.mesh import make_mesh
 
-    tables = _config5_data(DIST_SHARDS * DIST_ROWS_PER_SHARD, zipf)
-    plan = _config5_plan(tables, zipf, _card_hist(dev))
+    tables = bdt.config5_data(DIST_SHARDS * DIST_ROWS_PER_SHARD, zipf)
+    plan = _config5_plan(tables, zipf, bdt.device_hist(dev, DIST_SHARDS))
     mesh = make_mesh(DIST_SHARDS, [dev] * DIST_SHARDS)
     facts = {"capacity": plan["capacity"],
              "join_capacity": plan["join_capacity"],
              "heavy_keys": int(plan["heavy"].size),
-             "heavy_probe_share": plan["heavy_probe_share"]}
-    return (_config5_program(mesh, plan), _config5_args(mesh, tables), facts,
+             "heavy_probe_share": plan["heavy_probe_mass"]}
+    return (bdt.step_program(mesh, plan), bdt.step_args(mesh, tables), facts,
             tables)
-
-
-def _merged_groups(n_keys, gkeys, sums, counts, gvalid):
-    """Per join key: the pairs and the sum over every shard's groups (a
-    heavy key's groups sit on several shards)."""
-    got_n = np.zeros(n_keys, np.int64)
-    got_s = np.zeros(n_keys, np.int64)
-    for k, sm, c, v in zip(gkeys, sums, counts, gvalid):
-        v = v.cpu().numpy()
-        np.add.at(got_n, k.cpu().numpy()[v], c.cpu().numpy()[v])
-        np.add.at(got_s, k.cpu().numpy()[v], sm.cpu().numpy()[v])
-    return got_n, got_s
 
 
 def _dist_step_case(dev, zipf: bool):
@@ -1147,8 +1133,8 @@ def _dist_step_case(dev, zipf: bool):
     if bool(overflow):
         raise AssertionError(f"config-5 step overflowed (zipf={zipf}, "
                              f"capacity={capacity}, join={join_capacity})")
-    got_n, got_s = _merged_groups(n_keys, gkeys, sums, counts, gvalid)
-    exp_n, exp_s = _per_key_join(n_keys, lk, rk, lv, rv)
+    got_n, got_s = bdt.merged_groups(n_keys, gkeys, sums, counts, gvalid)
+    exp_n, exp_s = bdt.per_key_join(n_keys, lk, rk, lv, rv)
     if not (np.array_equal(got_n, exp_n) and np.array_equal(got_s, exp_s)):
         raise AssertionError(f"config-5 step differs from numpy (zipf={zipf})")
     del gkeys, sums, counts, gvalid
@@ -1268,7 +1254,7 @@ def _mp_case(mesh, dev, zipf: bool, single_capacity: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
-    tables = _config5_data(DIST_SHARDS * per, zipf)
+    tables = bdt.config5_data(DIST_SHARDS * per, zipf)
     plan = _config5_plan(tables, zipf, rank_hist)
     if plan["capacity"] != single_capacity:
         raise AssertionError(f"zipf={zipf}: capacity {plan['capacity']} over "
@@ -1277,8 +1263,8 @@ def _mp_case(mesh, dev, zipf: bool, single_capacity: int) -> dict:
     if hists_exact != [True, True]:
         raise AssertionError(f"zipf={zipf}: {len(hists_exact)} histograms "
                              "checked, 2 planned")
-    step = _config5_program(mesh, plan)
-    args = _config5_args(mesh, tables)
+    step = bdt.step_program(mesh, plan)
+    args = bdt.step_args(mesh, tables)
     gkeys, (sums, counts), gvalid, overflow = step(*args)
     if bool(overflow):
         raise AssertionError(f"config-5 step overflowed over ranks "
@@ -1289,8 +1275,8 @@ def _mp_case(mesh, dev, zipf: bool, single_capacity: int) -> dict:
     exact = None
     if mesh.rank == 0:
         n_keys, lk, rk, lv, rv = tables
-        got_n, got_s = _merged_groups(n_keys, *[[g] for g in gathered])
-        exp_n, exp_s = _per_key_join(n_keys, lk, rk, lv, rv)
+        got_n, got_s = bdt.merged_groups(n_keys, *[[g] for g in gathered])
+        exp_n, exp_s = bdt.per_key_join(n_keys, lk, rk, lv, rv)
         if not (np.array_equal(got_n, exp_n) and np.array_equal(got_s, exp_s)):
             raise AssertionError(f"config-5 step over ranks differs from "
                                  f"numpy (zipf={zipf})")
@@ -1571,7 +1557,7 @@ def _run_engine_distributed(dev, card: str):
     sql = DIST_JOIN_SQL
     joins = {}
     for zipf in (False, True):
-        n_keys, lk, rk, lv, rv = _config5_data(DIST_JOIN_ROWS, zipf)
+        n_keys, lk, rk, lv, rv = bdt.config5_data(DIST_JOIN_ROWS, zipf)
         eng.register("l", {"k": lk, "v": lv})
         eng.register("r", {"k": rk, "v": rv})
         torch.cuda.reset_peak_memory_stats()
@@ -1584,7 +1570,7 @@ def _run_engine_distributed(dev, card: str):
         if res.metrics["backend"] != "torch-distributed" or \
                 not set(want) <= set(res.metrics["routes"]):
             raise AssertionError(f"join zipf={zipf}: {res.metrics}")
-        exp_n, exp_s = _per_key_join(n_keys, lk, rk, lv, rv)
+        exp_n, exp_s = bdt.per_key_join(n_keys, lk, rk, lv, rv)
         keys = np.flatnonzero(exp_n)
         out = res.to_pandas().sort_values("k")
         _exact(f"{sql} (zipf={zipf})",
@@ -1618,62 +1604,6 @@ def _run_engine_distributed(dev, card: str):
 # ---------------------------------------------------------------------------
 # out-of-core execution: Parquet tables above the cache threshold
 # ---------------------------------------------------------------------------
-
-KERNELS = ("filter_agg", "seg_agg", "stream_compact", "expand_fill",
-           "radix_hist")
-
-
-def _write_fact(path: str, dev):
-    """bench.py's 1B-row table (``bench_groupby_1b``): ``k`` uniform in
-    [0, STREAM_GROUPS), ``v`` uniform in [0, 1M), seed 42, written in
-    STREAM_PIECE-row pieces.  The expected per-key COUNT and SUM accumulate
-    with ``np.bincount`` and MIN and MAX with ``scatter_reduce_`` on
-    ``dev``, piece by piece (neither shares code with the port's sort-based
-    path).  Returns (count, sum, min, max, rng): the generator goes on to
-    make the dimension table.  Each piece is written on a thread of its
-    own while the next is made and counted (the writer releases the
-    interpreter lock)."""
-    rows = STREAM_ROWS
-    from concurrent.futures import ThreadPoolExecutor
-
-    import pyarrow as pa
-    import pyarrow.parquet as pq
-
-    g = STREAM_GROUPS
-    rng = np.random.default_rng(42)
-    cnt = np.zeros(g, dtype=np.int64)
-    tot = np.zeros(g, dtype=np.int64)
-    mn = torch.full((g,), 1 << 40, dtype=torch.int64, device=dev)
-    mx = torch.full((g,), -1, dtype=torch.int64, device=dev)
-    writer = None
-    try:
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            writing = None
-            for lo in range(0, rows, STREAM_PIECE):
-                m = min(STREAM_PIECE, rows - lo)
-                k = rng.integers(0, g, m)
-                v = rng.integers(0, 1_000_000, m)
-                t = pa.table({"k": k, "v": v})
-                if writer is None:
-                    writer = pq.ParquetWriter(path, t.schema)
-                if writing is not None:
-                    writing.result()  # pieces go to the file in order
-                writing = pool.submit(writer.write_table, t)
-                cnt += np.bincount(k, minlength=g)
-                # a piece's per-key sum stays below 2^53: exact in float64
-                tot += np.bincount(k, weights=v, minlength=g).astype(np.int64)
-                kt = torch.from_numpy(k).to(dev)
-                vt = torch.from_numpy(v).to(dev)
-                mn.scatter_reduce_(0, kt, vt, "amin")
-                mx.scatter_reduce_(0, kt, vt, "amax")
-                del k, v, t, kt, vt
-            if writing is not None:
-                writing.result()
-    finally:
-        if writer is not None:
-            writer.close()
-    return cnt, tot, mn.cpu().numpy(), mx.cpu().numpy(), rng
-
 
 def _write_grace(d: str):
     """Two GRACE_ROWS-row tables for the grace join: ``a(k, g, x)`` and
@@ -1725,7 +1655,7 @@ def _streamed(eng, sql: str, rows: int, backend: str):
         "stream_s": stream_s, "host_split_s": sa.last_split_seconds,
         "step_interval_s": sa.last_step_interval_seconds,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
-        "launches": {k: _build.launches.get(k, 0) for k in KERNELS}}
+        "launches": {k: _build.launches.get(k, 0) for k in bt.KERNELS}}
 
 
 def _run_streaming(dev, card: str) -> None:
@@ -1741,7 +1671,11 @@ def _run_streaming(dev, card: str) -> None:
     d = tempfile.mkdtemp(prefix="olap_stream_")
     try:
         t0 = time.perf_counter()
-        cnt, tot, mn, mx, rng = _write_fact(f"{d}/t.parquet", dev)
+        # bench_torch.py's 1B-row table and its answer, piece by piece
+        acc, rng = bt.write_fact(f"{d}/t.parquet", rows, STREAM_GROUPS, dev)
+        cnt, tot = acc.cnt, acc.tot
+        mn, mx = acc.minmax()
+        del acc
         w = rng.integers(0, 1_000_000, STREAM_GROUPS)
         paths, a, b = _write_grace(d)
         write_s = time.perf_counter() - t0
@@ -1839,7 +1773,7 @@ def _run_streaming(dev, card: str) -> None:
 def _launches() -> dict:
     from gpu_olap_tpu_torch.ops.kernels import _build
 
-    return {k: _build.launches.get(k, 0) for k in KERNELS}
+    return {k: _build.launches.get(k, 0) for k in bt.KERNELS}
 
 
 def _need_launch(launches: dict, names, what: str) -> None:
@@ -1920,7 +1854,7 @@ def _run_dryrun(dev, card: str) -> None:
     n = DIST_SHARDS * 64
     lk, lv = rng.integers(0, 32, n), rng.integers(1, 10, n)
     rk, rv = rng.integers(0, 32, n), rng.integers(1, 10, n)
-    cnt, tot = _per_key_join(32, lk, rk, lv, rv)
+    cnt, tot = bdt.per_key_join(32, lk, rk, lv, rv)
     exp = {int(k): (int(tot[k]), int(cnt[k])) for k in np.flatnonzero(cnt)}
     if out["group_map"] != exp:
         raise AssertionError("dryrun_multichip: first step differs from numpy")
@@ -2284,9 +2218,9 @@ def main() -> int:
     _say("ptxas", kernels=_build.ptxas_report())
     if args.only == "multiprocess":
         capacities = {
-            name: _config5_plan(_config5_data(DIST_SHARDS * DIST_ROWS_PER_SHARD,
-                                              name == "zipf"),
-                                name == "zipf", _card_hist(dev))["capacity"]
+            name: _config5_plan(bdt.config5_data(
+                DIST_SHARDS * DIST_ROWS_PER_SHARD, name == "zipf"),
+                name == "zipf", bdt.device_hist(dev, DIST_SHARDS))["capacity"]
             for name in ("uniform", "zipf")}
         _run_multiprocess(card, capacities)
         _assert_standalone()
@@ -2296,6 +2230,7 @@ def main() -> int:
 
     kern = _check_kernels(dev)
     launches = _run_bench(dev, card)
+    _run_bench_scripts(card)
     join_launches, join_kern = _run_joins(dev, card)
     kern.update(join_kern)
     launches.update(join_launches)

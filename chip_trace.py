@@ -39,6 +39,8 @@ import time
 import numpy as np
 import torch
 
+import bench_dist_torch
+import bench_torch
 import chip_smoke as cs
 
 OUT_DIR = "chiprun_out"
@@ -146,7 +148,7 @@ JOIN_SQL = {
 def _joins(dev, card, names):
     """The join queries ``names`` on one set of join tables, as
     chip_smoke._run_joins builds them."""
-    eng = cs._join_engine(dev, 2.2)
+    eng = bench_torch.make_engine(dev, 2.2)
     rng = np.random.default_rng(2)
     n = cs.JOIN_ROWS
     lk = rng.integers(0, cs.JOIN_KEYS, n).astype(np.int64)
@@ -162,7 +164,7 @@ def _joins(dev, card, names):
 
 def _join_lookup(dev, card):
     nl, nr = cs.LOOKUP_ROWS
-    eng = cs._join_engine(dev, 1.25)
+    eng = bench_torch.make_engine(dev, 1.25)
     rng = np.random.default_rng(2)
     eng.register("l", {"k": rng.integers(0, nr, nl).astype(np.int64),
                        "v": rng.integers(0, 1000, nl).astype(np.int64)})
@@ -174,7 +176,7 @@ def _join_lookup(dev, card):
 
 def _sortmerge(dev, card):
     n = cs.SORTMERGE_ROWS
-    eng = cs._join_engine(dev, 2.5)
+    eng = bench_torch.make_engine(dev, 2.5)
     rng = np.random.default_rng(3)
     eng.register("l", {"k": rng.integers(0, n // 4, n).astype(np.int64)})
     eng.register("r", {"k": rng.integers(0, n // 4, n).astype(np.int64)})
@@ -203,7 +205,8 @@ def _dist_join(dev, card, zipf=False):
     eng = TorchOlapEngine(EngineConfig(
         mesh_shape=(cs.DIST_SHARDS,), join_expansion=16.0,
         enable_cache=False), device=dev, mesh_devices=[dev] * cs.DIST_SHARDS)
-    _nk, lk, rk, lv, rv = cs._config5_data(cs.DIST_JOIN_ROWS, zipf)
+    _nk, lk, rk, lv, rv = bench_dist_torch.config5_data(cs.DIST_JOIN_ROWS,
+                                                        zipf)
     eng.register("l", {"k": lk, "v": lv})
     eng.register("r", {"k": rk, "v": rv})
     del lk, rk, lv, rv

@@ -263,7 +263,8 @@ class DeviceExecutor:
                 batch = self._to_host(out, meta)
                 GLOBAL_METRICS.record_span(
                     "device_execute", t_exec.seconds, rows_in=rows_in,
-                    rows_out=batch.num_rows, bytes_accessed=bytes_in)
+                    rows_out=batch.num_rows, bytes_accessed=bytes_in,
+                    device=self.device)
                 return batch
             # grow capacities and rerun (bounded geometric growth)
             for key in overflowed:

@@ -296,7 +296,7 @@ class StreamingAggregator:
         GLOBAL_METRICS.record_span(
             "streamed_execute", time.perf_counter() - t0,
             rows_in=self.last_stream_rows, rows_out=batch.num_rows,
-            bytes_accessed=self.last_link_bytes)
+            bytes_accessed=self.last_link_bytes, device=self.device)
         if has_above:
             # post-aggregate operators run on the host over the small
             # group-result batch (same mechanism as the distributed path)

@@ -133,3 +133,18 @@ def filter_agg_i32(filt: torch.Tensor, op: str, threshold: int, cols,
     _build.launches["filter_agg"] += 1
     return count[0], [(sums[i], mins[i], maxs[i]) for i in range(k)]
 
+
+def filter_count_sum_i32(values: torch.Tensor, threshold, n_valid):
+    """Fused ``COUNT(*), SUM(v) WHERE v > threshold`` over an int32 column
+    (the one column is both filter and aggregate input); the sum as
+    float64, as the JAX wrapper returns it."""
+    count, ((total, _mn, _mx),) = filter_agg_i32(
+        values, "gt", threshold, (values,), n_valid)
+    return count, total.to(torch.float64)
+
+
+def filter_count_sum_exact_i32(values: torch.Tensor, threshold, n_valid):
+    """Exact int64 ``COUNT/SUM WHERE v > c`` for int32 values."""
+    count, ((total, _mn, _mx),) = filter_agg_i32(
+        values, "gt", threshold, (values,), n_valid)
+    return count, total

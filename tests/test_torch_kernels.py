@@ -148,6 +148,50 @@ def test_filter_agg_cuda_counts_only_real_launches():
     assert _build.launches["filter_agg"] == launches + 1
 
 
+# the two public wrappers of B1, at test_pallas_kernels.py's shapes: (name,
+# seed, n, value bound, threshold, rows cut off the end)
+COUNT_SUM_CASES = [("filter_count_sum_i32", 0, 100_000, 1000, 500, 5000),
+                   ("filter_count_sum_exact_i32", 1, 70_000, 1 << 30,
+                    1 << 29, 0)]
+
+
+def _count_sum_case(case):
+    name, seed, n, high, thr, cut = case
+    v = np.random.default_rng(seed).integers(0, high, n).astype(np.int32)
+    return name, v, thr, n - cut
+
+
+@pytest.mark.parametrize("case", COUNT_SUM_CASES, ids=lambda c: c[0])
+def test_filter_count_sum_matches_pallas(case, interpret_mode):
+    import jax
+
+    from gpu_olap_tpu.ops.pallas import filter_agg as jfa
+
+    name, v, thr, n_valid = _count_sum_case(case)
+    jc, js = getattr(jfa, name)(jax.numpy.asarray(v), thr, n_valid)
+    tc, ts = getattr(tfa, name)(torch.from_numpy(v), thr, n_valid)
+    assert ts.dtype == (torch.float64 if name == "filter_count_sum_i32"
+                        else torch.int64)
+    assert (int(tc), ts.item()) == (int(jc), np.asarray(js).item())
+    m = v[:n_valid] > thr
+    assert (int(tc), int(ts)) == (int(m.sum()),
+                                  int(v[:n_valid][m].astype(np.int64).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COUNT_SUM_CASES, ids=lambda c: c[0])
+def test_filter_count_sum_cuda_matches_plain(case):
+    dev = _cuda_device()
+    name, v, thr, n_valid = _count_sum_case(case)
+    launches = _build.launches["filter_agg"]
+    tc, ts = getattr(tfa, name)(torch.from_numpy(v).to(dev), thr, n_valid)
+    pc, ps = getattr(tfa, name)(torch.from_numpy(v), thr, n_valid)
+    torch.cuda.synchronize()
+    assert _build.launches["filter_agg"] == launches + 1
+    assert ts.dtype == ps.dtype
+    assert (int(tc), ts.item()) == (int(pc), ps.item())
+
+
 # ---------------------------------------------------------------------------
 # seg_agg: the cases of test_pallas_kernels.py (co-sorted int32 lanes, a
 # multiple of the TPU kernel's 2048-row superblock)

@@ -1,13 +1,14 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
-(a) No ``.py`` file of ``gpu_olap_tpu_torch``, no chip script and not
-    ``examples/torch_usage.py`` imports ``jax``, ``gpu_olap_tpu`` or a
+(a) No ``.py`` file of ``gpu_olap_tpu_torch``, no bench or chip script and
+    not ``examples/torch_usage.py`` imports ``jax``, ``gpu_olap_tpu`` or a
     submodule of either (names match exactly, so ``gpu_olap_tpu_torch``
     itself is allowed).
 (b) With ``jax`` and ``gpu_olap_tpu`` blocked from import, the port answers
     a filtered aggregate, a GROUP BY, a join and a UNION ALL on the CPU, as
-    numpy does, its entry points and CLI run, and two ranks of a gloo group
-    run a distributed join + GROUP BY step as numpy does.
+    numpy does, its entry points and CLI run, the bench scripts run a
+    config and a config-5 step exact, and two ranks of a gloo group run a
+    distributed join + GROUP BY step as numpy does.
 (c) The port's own parser, optimizer and planner give the JAX package's
     ``explain`` text for every query of the port's parity corpus.
 """
@@ -39,7 +40,8 @@ def _sources():
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.relpath(os.path.join(dirpath, f), ROOT)
                 for f in files if f.endswith(".py")]
-    return sorted(out) + ["chip_smoke.py", "chip_trace.py",
+    return sorted(out) + ["bench_torch.py", "bench_dist_torch.py",
+                          "chip_smoke.py", "chip_trace.py",
                           "chip_kernel_ab.py", "examples/torch_usage.py"]
 
 
@@ -192,6 +194,14 @@ _BLOCKED_RUN = _BLOCKER + textwrap.dedent("""
     with contextlib.redirect_stdout(io.StringIO()):
         assert entry.dryrun_multichip(4, ["cpu"] * 4)["retries"] >= 1
     assert cli.main(["--device", "cpu", "SELEC 1"]) == 0
+
+    # the bench surface: a config checked against numpy, a config-5 step
+    import bench_dist_torch
+    import bench_torch
+    res = bench_torch.run_config("filter_agg", (70_000,), 1, "cpu")
+    assert res["exact"] and res["backend"] == "torch-cpu", res
+    res = bench_dist_torch.bench_step(2, 4096, 1, False, device="cpu")
+    assert res["exact"] is True and res["ndev"] == 2, res
 
     # a 2-rank gloo group: this process is rank 0, a blocked peer rank 1
     import subprocess
