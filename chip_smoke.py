@@ -77,7 +77,10 @@ Phases, each printing one JSON line:
     temporary directory (removed at the end): bench.py's 1B-row table
     (``k`` in [0, 4M), ``v`` in [0, 1M), seed 42) and its GROUP BY into 4M
     groups, twice, on the hash-partitioned streamed state; a streamed join
-    of those rows against a cached 4M-row dimension table; a grace join of
+    of those rows against a cached 4M-row dimension table; a star join of
+    the same rows grouped by the dimension's ``nation`` with MIN/MAX of its
+    ``city`` (string columns in the shape of the Star Schema Benchmark's
+    customer table: 25 nations, 10 cities each); a grace join of
     two 20M-row files through spill partitions; a COUNT(DISTINCT) that
     cannot stream and loads its table whole.  Each is exact against numpy
     on its backend label; each line gives the wall, rows/s, the streamer's
@@ -85,31 +88,35 @@ Phases, each printing one JSON line:
     seconds, summed step intervals on the device (CUDA events read once;
     an upper bound on its busy time), peak device bytes and the five
     kernels' launches;
-14. entry: ``gpu_olap_tpu_torch.entry.entry(device="cuda")``'s step on its
+14. engine_temporal: a 100M-row in-memory table with a TIMESTAMP column
+    over 2020-2024, counted and summed over a half year written with date
+    strings (``>= AND <``, then BETWEEN), exact against numpy on
+    ``torch-cuda``, with the cold and warm walls;
+15. entry: ``gpu_olap_tpu_torch.entry.entry(device="cuda")``'s step on its
     example rows, then at the groupby bench width (100M rows, keys in
     [0, 128), values in [0, 1000), threshold 500, seed 0), exact against
     numpy; median wall of 5 runs and the kernels' launches;
-15. dryrun_multichip: ``dryrun_multichip(8, devices=["cuda:0"] * 8)``: one
+16. dryrun_multichip: ``dryrun_multichip(8, devices=["cuda:0"] * 8)``: one
     distributed join + GROUP BY step (exact against numpy), the
     overflow-retry loop, the skew-broadcast parity and the shuffle/local
     split;
-16. cli: ``python -m gpu_olap_tpu_torch`` over an 8,388,608-row Parquet file
+17. cli: ``python -m gpu_olap_tpu_torch`` over an 8,388,608-row Parquet file
     (seed 7) that the default config caches whole: a filtered aggregate
     (filter_agg must launch), a GROUP BY printing 50 rows (seg_agg must
     launch), an ``--explain``, the filter query in a fresh process, and a
     self-join GROUP BY with ``--mesh 8``; every printed row exact;
-17. engine_concurrent: ``GpuOlapEngine(device="cuda")``, the five queries of
+18. engine_concurrent: ``GpuOlapEngine(device="cuda")``, the five queries of
     ``tests/test_engine_concurrent.py`` over that table, each six times
     through ``query_async`` and once through ``aquery``, equal to the serial
     answers (and those to the oracle); the result cache; ``shutdown``;
-18. examples: each flow of ``examples/torch_usage.py`` at full demo size,
+19. examples: each flow of ``examples/torch_usage.py`` at full demo size,
     equal to the same flow on the oracle; then ``host_surface``, the
-    seconds of phases 14-18 together;
-19. standalone: neither JAX nor any module of ``gpu_olap_tpu`` was loaded.
+    seconds of phases 15-19 together;
+20. standalone: neither JAX nor any module of ``gpu_olap_tpu`` was loaded.
 
 The eight shards on one card measure the distributed code path, not
 scaling; ``multiprocess`` on four cards does (``--only multiprocess`` runs
-phases 1, 2, 11 and 19 and prints no kernel line).  The line before the
+phases 1, 2, 11 and 20 and prints no kernel line).  The line before the
 last is a JSON object with one entry per kernel (radix_hist's launches
 include the ranks'); the last line is ``{"ok": true, "device": {...}}``.
 Any failure raises.
@@ -160,6 +167,20 @@ MP_TIMEOUT_S = 300
 # cache threshold
 STREAM_ROWS, STREAM_GROUPS = _FULL["groupby_1b"]
 GRACE_ROWS = 20_000_000
+# the dimension's string columns, in the shape of the Star Schema
+# Benchmark's customer table: c_nation (25 nations) and c_city (the first
+# nine characters of the nation, padded, and a digit: 10 cities a nation)
+SSB_NATIONS = np.array([
+    "ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "CHINA", "EGYPT", "ETHIOPIA",
+    "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ", "JAPAN",
+    "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU", "ROMANIA", "RUSSIA",
+    "SAUDI ARABIA", "UNITED KINGDOM", "UNITED STATES", "VIETNAM"],
+    dtype=object)
+SSB_CITIES = np.array([f"{n[:9]:<9}{i}" for n in SSB_NATIONS
+                       for i in range(10)], dtype=object)
+# TIMESTAMP predicates with date strings: an in-memory table of this many
+# rows, timestamps uniform over 2020-2024
+TEMPORAL_ROWS = 100_000_000
 # the entry points: entry()'s step at the groupby bench width (keys in
 # [0, 128)); the CLI's Parquet table, the largest the default config caches
 # whole (under its 10M-row threshold)
@@ -1658,6 +1679,44 @@ def _streamed(eng, sql: str, rows: int, backend: str):
         "launches": {k: _build.launches.get(k, 0) for k in bt.KERNELS}}
 
 
+def _ssb_dimension(w, nation, city):
+    """The cached dimension ``d(k, w, nation, city)`` as an Arrow table; the
+    string columns are dictionary arrays over ``SSB_NATIONS`` and
+    ``SSB_CITIES``."""
+    import pyarrow as pa
+
+    return pa.table({
+        "k": np.arange(len(w), dtype=np.int64), "w": w,
+        "nation": pa.DictionaryArray.from_arrays(
+            nation.astype(np.int32), pa.array(SSB_NATIONS, pa.string())),
+        "city": pa.DictionaryArray.from_arrays(
+            city.astype(np.int32), pa.array(SSB_CITIES, pa.string()))})
+
+
+def _star_expected(cnt, tot, nation, city) -> dict:
+    """The star join's answer from the fact table's per-key counts ``cnt``
+    and sums ``tot``: per nation (in name order) the joined rows, the sum
+    of ``v`` and the least and greatest city among its keys that met a
+    fact row."""
+    n_nat = np.bincount(nation, weights=cnt, minlength=len(SSB_NATIONS))
+    s_nat = np.zeros(len(SSB_NATIONS), dtype=np.int64)
+    np.add.at(s_nat, nation, tot)
+    order = np.argsort(SSB_CITIES.astype(str), kind="stable")
+    rank = np.empty(len(SSB_CITIES), dtype=np.int64)
+    rank[order] = np.arange(len(SSB_CITIES))
+    met = cnt > 0
+    lo = np.full(len(SSB_NATIONS), len(SSB_CITIES), dtype=np.int64)
+    hi = np.full(len(SSB_NATIONS), -1, dtype=np.int64)
+    np.minimum.at(lo, nation[met], rank[city[met]])
+    np.maximum.at(hi, nation[met], rank[city[met]])
+    by_name = [i for i in np.argsort(SSB_NATIONS.astype(str), kind="stable")
+               if n_nat[i] > 0]
+    return {"nation": SSB_NATIONS[by_name],
+            "n": n_nat[by_name].astype(np.int64), "s": s_nat[by_name],
+            "c0": SSB_CITIES[order][lo[by_name]],
+            "c1": SSB_CITIES[order][hi[by_name]]}
+
+
 def _run_streaming(dev, card: str) -> None:
     """Out-of-core execution through ``TorchOlapEngine``: Parquet tables
     above the cache threshold, one line per query, each exact against
@@ -1689,8 +1748,12 @@ def _run_streaming(dev, card: str) -> None:
             eng.load_table(name, path)
         if any(eng.catalog.is_cached(n) for n in ("t", "a", "b")):
             raise AssertionError("a streamed table was cached")
-        eng.register("d", {"k": np.arange(STREAM_GROUPS, dtype=np.int64),
-                           "w": w})
+        # each dimension row's nation and city, from a generator of its own
+        # (``w`` and the join's answer stay as they were)
+        drng = np.random.default_rng(44)
+        nation = drng.integers(0, len(SSB_NATIONS), STREAM_GROUPS)
+        city = nation * 10 + drng.integers(0, 10, STREAM_GROUPS)
+        eng.register("d", _ssb_dimension(w, nation, city))
         common = {"card": card, "reduced": False,
                   "data_write_seconds": write_s}
 
@@ -1731,9 +1794,21 @@ def _run_streaming(dev, card: str) -> None:
             "n": [rows], "s": [int(tot.sum() + (cnt * w).sum())]})
         _say("engine_streaming", query="join cached dimension", **common,
              **line, exact=True)
-        del cnt, tot, mn, mx, w, keys
 
-        # 3. the grace join: both sides above the cache threshold
+        # 3. the star join: GROUP BY a string column of the dimension, MIN
+        # and MAX of another
+        sql = ("SELECT d.nation, COUNT(*) AS n, SUM(t.v) AS s, "
+               "MIN(d.city) AS c0, MAX(d.city) AS c1 FROM t "
+               "JOIN d ON t.k = d.k GROUP BY d.nation")
+        res, line = _streamed(eng, sql, rows, "torch-streaming")
+        out = res.to_pandas().sort_values("nation")
+        _exact(sql, {c: out[c].to_numpy() for c in out.columns},
+               _star_expected(cnt, tot, nation, city))
+        _say("engine_streaming", query="star join string dimension",
+             nations=int(len(out)), **common, **line, exact=True)
+        del cnt, tot, mn, mx, w, keys, nation, city, res, out
+
+        # 4. the grace join: both sides above the cache threshold
         sql = ("SELECT a.g, COUNT(*) AS n, SUM(a.x + b.y) AS s FROM a "
                "JOIN b ON a.k = b.k GROUP BY a.g")
         res, line = _streamed(eng, sql, 2 * grace_rows,
@@ -1753,7 +1828,7 @@ def _run_streaming(dev, card: str) -> None:
              **common, **line, exact=True)
         del nb, yb, m, res, out
 
-        # 4. COUNT(DISTINCT) does not merge across chunks: the table loads
+        # 5. COUNT(DISTINCT) does not merge across chunks: the table loads
         # whole onto the device
         sql = "SELECT COUNT(DISTINCT k) AS n FROM a"
         res, line = _streamed(eng, sql, grace_rows, "torch-cuda")
@@ -1763,6 +1838,55 @@ def _run_streaming(dev, card: str) -> None:
         del eng, res, a, b
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def _run_temporal(dev, card: str) -> None:
+    """TIMESTAMP predicates written with date strings, at full width: an
+    in-memory ``TEMPORAL_ROWS``-row table ``e(ts, v)`` (``ts`` uniform over
+    2020-2024 in milliseconds, ``v`` in [0, 1000), seed 45), a half-year
+    range as ``>= AND <`` and as BETWEEN, each exact against numpy on
+    ``torch-cuda``: one line per query with the cold wall (the upload
+    included), the warm runs and peak device bytes."""
+    from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+    from gpu_olap_tpu_torch.ops.kernels import _build
+
+    rows = TEMPORAL_ROWS
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(45)
+    lo = np.datetime64("2020-01-01", "ms").astype(np.int64)
+    hi = np.datetime64("2025-01-01", "ms").astype(np.int64)
+    ts = rng.integers(lo, hi, rows).view("datetime64[ms]")
+    v = rng.integers(0, 1000, rows)
+    eng = TorchOlapEngine(EngineConfig(enable_cache=False), device=dev)
+    eng.register("e", {"ts": ts, "v": v})
+    setup_s = time.perf_counter() - t0
+    in_range = ((ts >= np.datetime64("2022-01-01"))
+                & (ts < np.datetime64("2022-07-01")))
+    between = ((ts >= np.datetime64("2022-01-01"))
+               & (ts <= np.datetime64("2022-06-30T23:59:59.999")))
+    for name, pred, mask in (
+            ("range", "ts >= '2022-01-01' AND ts < '2022-07-01'", in_range),
+            ("between", "ts BETWEEN '2022-01-01' AND "
+             "'2022-06-30 23:59:59.999'", between)):
+        sql = f"SELECT COUNT(*) AS n, SUM(v) AS s FROM e WHERE {pred}"
+        _build.launches.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        res = eng.query(sql)
+        cold = time.perf_counter() - t1
+        if res.metrics["backend"] != "torch-cuda":
+            raise AssertionError(f"{sql}: backend {res.metrics['backend']}")
+        exp = {"n": [int(mask.sum())], "s": [int(v[mask].sum())]}
+        _exact(sql, res.to_pydict(), exp)
+        stats = _timed_query(eng, sql, rows)
+        _say("engine_temporal", query=name, sql=sql, card=card,
+             backend=res.metrics["backend"], routes=res.metrics["routes"],
+             n=exp["n"][0], s=exp["s"][0], setup_s=setup_s, cold_s=cold,
+             **stats, peak_device_bytes=torch.cuda.max_memory_allocated(),
+             launches=_launches(), exact=True)
+    del eng, ts, v, in_range, between
     torch.cuda.empty_cache()
 
 
@@ -2242,6 +2366,7 @@ def main() -> int:
     launches["radix_hist"] += _run_multiprocess(card, capacities)["radix_hist"]
     _run_engine_distributed(dev, card)
     _run_streaming(dev, card)
+    _run_temporal(dev, card)
     _run_host_surface(dev, card)
     _assert_standalone()
 

@@ -309,6 +309,7 @@ class StreamingAggregator:
 
     def _execute_aggregate(self, plan: P.TpuAggregate) -> ColumnBatch:
         pipe = match_streamable(plan, self.catalog)
+        string_cols = _string_sources(pipe)
         agg = pipe.aggregate
         chunk_rows = self.config.batch_size
         partials = self._stream_partials(pipe)
@@ -332,6 +333,10 @@ class StreamingAggregator:
         GLOBAL_METRICS.bump("torch_streamed_join" if pipe.join is not None
                             else "torch_streamed_scan")
         build = self._prepare_build(pipe) if pipe.join is not None else None
+        # the resident build batch fixes each string value's dictionary for
+        # the whole stream
+        dicts = [None if j is None else build["batch"].cols[j].dictionary
+                 for j in string_cols]
         if build is not None:
             # size the per-chunk match buffer from the build side's MEASURED
             # key duplication (2x headroom) instead of blind growth retries
@@ -346,7 +351,7 @@ class StreamingAggregator:
                 pipe, build, chunk_rows, max_groups, join_capacity, partials,
                 state, self._probe_chunks(pipe, chunk_rows))
             if not (j_ovf or g_ovf):
-                return self._finalize(agg, state, partials)
+                return self._finalize(agg, state, partials, dicts)
             # grow ONLY the overflowing capacity
             if j_ovf:
                 join_capacity *= 4
@@ -714,8 +719,11 @@ class StreamingAggregator:
             if cap > n:
                 data = np.zeros(cap, dtype=data.dtype)
                 validity = None if validity is None else np.zeros(cap, bool)
+            dictionary = c.dictionary
+            if dictionary is not None:
+                data, dictionary = _sorted_dictionary(data, dictionary)
             v = None if validity is None else _upload(validity, self.device)
-            cols.append(DevCol(_upload(data, self.device), v, c.dictionary))
+            cols.append(DevCol(_upload(data, self.device), v, dictionary))
         row_valid = (torch.zeros(cap, dtype=torch.bool, device=self.device)
                      if cap > n else None)
         batch = DevBatch(build_scan.schema, cols, cap, row_valid)
@@ -889,10 +897,14 @@ class StreamingAggregator:
         return step
 
     # ------------------------------------------------------------------
-    def _finalize(self, agg: P.TpuAggregate, state, partials) -> ColumnBatch:
+    def _finalize(self, agg: P.TpuAggregate, state, partials,
+                  dicts=None) -> ColumnBatch:
         """Group state -> host batch.  The valid groups form a prefix of the
         state, so each lane is sliced on the device and only ``n_groups``
-        rows of it cross to the host."""
+        rows of it cross to the host.  ``dicts``: per group key, then per
+        aggregate, the dictionary of a string value (``_string_sources``)."""
+        if dicts is None:
+            dicts = [None] * (len(agg.group_exprs) + len(agg.aggs))
         state_keys, state_partials, state_valid = state
         valid = state_valid.cpu().numpy()
         if not agg.group_exprs and not valid.any():
@@ -906,7 +918,8 @@ class StreamingAggregator:
             idx = np.arange(n)
 
         cols: List[Column] = []
-        for (code, null), g in zip(state_keys, agg.group_exprs):
+        for (code, null), g, dictionary in zip(state_keys, agg.group_exprs,
+                                               dicts):
             data = code.cpu().numpy()[idx]
             null_h = null.cpu().numpy()[idx]
             if g.dtype is DType.BOOL:
@@ -914,15 +927,17 @@ class StreamingAggregator:
             if data.dtype == np.int32 and \
                     g.dtype.numpy_dtype == np.dtype(np.int64):
                 data = data.astype(np.int64)  # narrowed key lane widens here
-            cols.append(Column(data, ~null_h if null_h.any() else None))
+            cols.append(Column(data, ~null_h if null_h.any() else None,
+                               dictionary))
 
         p_i = 0
-        for spec_group, a in zip(partials, agg.aggs):
+        for spec_group, a, dictionary in zip(partials, agg.aggs,
+                                             dicts[len(agg.group_exprs):]):
             vals = {}
             for pname, _pfunc, _pdtype in spec_group:
                 vals[pname] = state_partials[p_i].cpu().numpy()[idx]
                 p_i += 1
-            cols.append(_finalize_agg(a, vals))
+            cols.append(_finalize_agg(a, vals, dictionary))
         return ColumnBatch(agg.schema, cols, len(idx))
 
 
@@ -964,6 +979,50 @@ def _dup_capacity(chunk_rows: int, avg_dup: float) -> int:
     chunk), rounded up to a power of two."""
     est = int(chunk_rows * max(2.0 * avg_dup, 1.25)) + 1024
     return 1 << (est - 1).bit_length()
+
+
+def _string_sources(pipe: _StreamablePipeline) -> List[Optional[int]]:
+    """Per group key, then per aggregate: the column of the resident build
+    batch whose dictionary a string value carries, or None for a value
+    that is not a string.  The step merges string codes, so a string value
+    streams only when one dictionary holds for the whole stream: that of a
+    column of the build side, which is uploaded once.  Any other string
+    value (a column of the streamed scan, a CASE over string literals, a
+    string on the grace join's spilled build side) raises ``NotStreamable``
+    before the first chunk."""
+    agg = pipe.aggregate
+    exprs = list(agg.group_exprs) + [
+        a.arg if a.out_dtype is DType.STRING else None for a in agg.aggs]
+    # join columns past the probe side's come from the build batch
+    n_probe = (len(pipe.join.left.schema)
+               if pipe.join is not None and not pipe.partitioned else None)
+    out: List[Optional[int]] = []
+    for e in exprs:
+        if e is None or e.dtype is not DType.STRING:
+            out.append(None)
+            continue
+        for op in reversed(pipe.agg_middle):
+            if isinstance(op, P.TpuProjection) and isinstance(e, P.ColumnRef):
+                e = op.exprs[e.index]
+        if n_probe is None or not isinstance(e, P.ColumnRef) \
+                or e.index < n_probe:
+            raise NotStreamable("a string value that is not a column of the "
+                                "cached build side")
+        out.append(e.index - n_probe)
+    return out
+
+
+def _sorted_dictionary(codes: np.ndarray, dictionary):
+    """(codes, dictionary) re-coded onto the sorted dictionary, so that the
+    order of codes is the order of strings and a MIN/MAX over codes is the
+    MIN/MAX over strings.  A sorted dictionary comes back as it is."""
+    words = np.asarray(dictionary, dtype=object).astype(str)
+    if words.size < 2 or bool((words[:-1] < words[1:]).all()):
+        return codes, dictionary
+    order = np.argsort(words, kind="stable")
+    rank = np.empty(words.size, dtype=np.int64)
+    rank[order] = np.arange(words.size)
+    return rank[codes], np.asarray(dictionary, dtype=object)[order]
 
 
 def _partial_layout(agg: P.TpuAggregate, ranges=None, total_rows=None):
@@ -1022,9 +1081,11 @@ def _nullfree_arg(a, ranges) -> bool:
     return ranges is not None and isinstance(a.arg, P.ColumnRef)
 
 
-def _finalize_agg(a: P.AggSpec, vals) -> Column:
+def _finalize_agg(a: P.AggSpec, vals, dictionary=None) -> Column:
     """Partials may be carried in narrowed dtypes (f64 counts/sums proven
-    exact, int32 min/max) — cast back to the logical output dtype here."""
+    exact, int32 min/max) — cast back to the logical output dtype here.
+    A string MIN/MAX is a code of ``dictionary``; a group without a value
+    gets code 0 under its null."""
     out_np = a.out_dtype.numpy_dtype
     if a.func == "count":
         return Column(vals["count"].astype(np.int64))
@@ -1034,7 +1095,7 @@ def _finalize_agg(a: P.AggSpec, vals) -> Column:
         data = vals["sum" if a.func == "sum" else a.func]
         if data.dtype != out_np:
             data = data.astype(out_np)
-        return Column(data)
+        return Column(data, None, dictionary)
     has = cnt > 0
     if a.func == "avg":
         with np.errstate(invalid="ignore", divide="ignore"):
@@ -1044,7 +1105,9 @@ def _finalize_agg(a: P.AggSpec, vals) -> Column:
     data = vals[key]
     if data.dtype != out_np:
         data = data.astype(out_np)
-    return Column(data, None if has.all() else has)
+    if dictionary is not None:
+        data = np.where(has, data, 0)
+    return Column(data, None if has.all() else has, dictionary)
 
 
 def _init_state(group_exprs, partials, max_groups: int, device,

@@ -104,7 +104,9 @@ def column_from_arrow(arr: pa.ChunkedArray, dtype: DType) -> Column:
         arr = arr.cast(pa.timestamp("ms"))
         data = arr.to_numpy(zero_copy_only=False).astype("datetime64[ms]").astype(np.int64)
     elif dtype is DType.DATE32:
-        data = arr.cast(pa.int64()).to_numpy(zero_copy_only=False).astype(np.int64)
+        # days pass through int32: Arrow has no date32 -> int64 cast
+        data = arr.cast(pa.int32()).fill_null(0).to_numpy(
+            zero_copy_only=False).astype(np.int64)
     elif dtype is DType.BOOL:
         data = arr.to_numpy(zero_copy_only=False)
         if data.dtype == object:

@@ -18,7 +18,10 @@ hash join, ``:140-155``).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import List, Optional, Tuple
+
+import numpy as np
 
 from ..config import EngineConfig
 from ..interop.columnar import DType, Field, Schema
@@ -269,6 +272,49 @@ def _literal_dtype(value) -> DType:
     raise PlanError(f"Unsupported literal {value!r}")
 
 
+_COMPARISONS = ("=", "!=", "<", "<=", ">", ">=")
+# the resolution of each temporal column type, as a numpy datetime64 unit
+_TEMPORAL_UNIT = {DType.TIMESTAMP_MS: "ms", DType.DATE32: "D"}
+
+
+def _temporal_value(text: str, dtype: DType) -> int:
+    """A date string read by numpy's ``datetime64`` rules, as the int64 a
+    column of ``dtype`` holds: milliseconds or days since the epoch.  A
+    string that does not parse, names no instant (``NaT``), carries a time
+    zone, or is finer than the column's resolution raises ``PlanError``."""
+    unit = _TEMPORAL_UNIT[dtype]
+    try:
+        with warnings.catch_warnings():
+            # numpy only warns on a time-zone suffix
+            warnings.simplefilter("error")
+            parsed = np.datetime64(text)
+    except (ValueError, UserWarning, DeprecationWarning) as exc:
+        raise PlanError(f"{text!r} is not a date or time: {exc}") from None
+    if np.isnat(parsed):
+        raise PlanError(f"{text!r} is not a date or time")
+    value = parsed.astype(f"datetime64[{unit}]")
+    if value != parsed:
+        raise PlanError(f"{text!r} is finer than the {dtype.value} "
+                        f"column's resolution ({unit})")
+    return int(value.astype(np.int64))
+
+
+def _typed_comparison(left: PhysExpr, right: PhysExpr):
+    """A comparison of a TIMESTAMP_MS or DATE32 expression with a string
+    literal compares with the literal's instant in the column's unit; with
+    any other string expression it is refused (never compared digit by
+    digit)."""
+    for this, other in ((left, right), (right, left)):
+        if this.dtype in _TEMPORAL_UNIT and other.dtype is DType.STRING:
+            if not isinstance(other, PhysLiteral):
+                raise PlanError(f"cannot compare {this.dtype.value} with a "
+                                "string expression")
+            lit = PhysLiteral(this.dtype,
+                              _temporal_value(other.value, this.dtype))
+            return (this, lit) if this is left else (lit, this)
+    return left, right
+
+
 def lower_expr(e: L.Expr, schema: Schema) -> PhysExpr:
     e = strip_alias(e)
     if isinstance(e, L.Column):
@@ -282,6 +328,8 @@ def lower_expr(e: L.Expr, schema: Schema) -> PhysExpr:
         right = lower_expr(e.right, schema)
         # comparisons of string column vs string literal: map literal into
         # dictionary space at execution time (kept as STRING literal here)
+        if e.op in _COMPARISONS:
+            left, right = _typed_comparison(left, right)
         return PhysBinary(_arith_result(e.op, left.dtype, right.dtype), e.op, left, right)
     if isinstance(e, L.UnaryOp):
         operand = lower_expr(e.operand, schema)
@@ -297,8 +345,11 @@ def lower_expr(e: L.Expr, schema: Schema) -> PhysExpr:
     if isinstance(e, L.InList):
         if all(isinstance(i, L.Literal) for i in e.items):
             operand = lower_expr(e.expr, schema)
-            return PhysInList(DType.BOOL, operand,
-                              tuple(i.value for i in e.items), e.negated)
+            values = tuple(i.value for i in e.items)
+            if operand.dtype in _TEMPORAL_UNIT:
+                values = tuple(_temporal_value(v, operand.dtype)
+                               if isinstance(v, str) else v for v in values)
+            return PhysInList(DType.BOOL, operand, values, e.negated)
         ors: L.Expr = L.BinaryOp("=", e.expr, e.items[0])
         for item in e.items[1:]:
             ors = L.BinaryOp("OR", ors, L.BinaryOp("=", e.expr, item))

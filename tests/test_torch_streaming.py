@@ -13,7 +13,12 @@ Beyond the twins: three queries whose values pass int32 after arithmetic
 on int32-staged columns (``v * 3000000``), and two streamed queries where
 the JAX engine is wrong and the port is not (ROADMAP.md C).  The
 hash-state twin also checks that the port returns every staging buffer to
-its arena, where JAX's hash-partitioned route keeps some out.
+its arena, where JAX's hash-partitioned route keeps some out.  Then
+streamed star joins that group by, or take MIN/MAX of, a string column of
+the cached dimension (from ``register()`` and from Parquet), which the port
+answers as the oracle does and JAX cannot read back; a dictionary out of
+string order; a CASE over string literals, which loads its table whole;
+and streamed global MINs that JAX gives as 0.
 
 Most twins cap ``max_groups`` at 4096 on both engines (the tables hold at
 most 280 groups): the route is the same as at the default, and the merge
@@ -25,6 +30,7 @@ import pandas as pd
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
+import torch
 
 from gpu_olap_tpu import EngineConfig, OlapEngine
 from gpu_olap_tpu_torch import EngineConfig as TorchConfig
@@ -411,3 +417,172 @@ def test_float_max_first_minmax_where_jax_truncates(seq_parquet):
     assert (got.mx % 1 != 0).any()
     jax_mx = _frame(jax_eng.query(sql), ["k"]).mx
     assert (jax_mx % 1 == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# streamed star joins over a string column of the cached dimension table
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def one_torch_thread():
+    """The streamed steps over these small tables are many small torch
+    operations: with one thread they take as long as with all cores alone,
+    and beside other test workers several times less."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def star_tables(tmp_path_factory):
+    """An uncached fact table (``k`` in 0..39) and a 40-row dimension whose
+    string ``g`` takes three values; ``w`` is its one nullable-free int."""
+    d = tmp_path_factory.mktemp("tstar")
+    rng = np.random.default_rng(31)
+    n = 12_000
+    fact = str(d / "fact.parquet")
+    pq.write_table(pa.table({
+        "k": rng.integers(0, 48, n).astype(np.int64),
+        "v": rng.integers(0, 1000, n).astype(np.int64),
+    }), fact)
+    dim = pa.table({
+        "k": np.arange(40, dtype=np.int64),
+        "g": np.array(["zeta", "alpha", "mu"] * 13 + ["beta"], dtype=object),
+        "w": rng.integers(0, 100, 40).astype(np.int64),
+    })
+    dim_path = str(d / "dim.parquet")
+    pq.write_table(dim, dim_path)
+    return fact, dim, dim_path
+
+
+STAR_QUERIES = {
+    "group_key": "SELECT d.g, COUNT(*) AS n, SUM(b.v) AS s FROM big b "
+                 "JOIN dim d ON b.k = d.k GROUP BY d.g",
+    "grouped_minmax": "SELECT b.k % 4 AS m, MIN(d.g) AS lo, MAX(d.g) AS hi "
+                      "FROM big b JOIN dim d ON b.k = d.k WHERE b.v > d.w "
+                      "GROUP BY b.k % 4",
+    "global_minmax": "SELECT MIN(d.g) AS lo, MAX(d.g) AS hi, COUNT(*) AS n "
+                     "FROM big b JOIN dim d ON b.k = d.k WHERE d.g <> 'mu'",
+    "key_and_minmax": "SELECT d.g, d.w, MIN(d.g) AS lo, SUM(b.v) AS s "
+                      "FROM big b JOIN dim d ON b.k = d.k GROUP BY d.g, d.w",
+}
+
+
+@pytest.mark.parametrize("dim_from", ["register", "parquet"])
+@pytest.mark.parametrize("state", ["one_state", "small_state"])
+@pytest.mark.parametrize("name", sorted(STAR_QUERIES))
+@pytest.mark.usefixtures("one_torch_thread")
+def test_streamed_star_join_string_dimension_where_jax_raises(
+        star_tables, dim_from, state, name):
+    """A streamed join whose group key or MIN/MAX argument is a string
+    column of the cached dimension: the port keeps the build side's
+    dictionary (uploaded once, fixed for the stream) and gives the oracle's
+    rows; JAX's finalized columns carry no dictionary and reading them
+    raises ``IndexError``.  ``small_state`` caps the group state at 2
+    slots: a streamed join keeps one state (the hash-partitioned state
+    serves scans without a join), which overflows and grows."""
+    fact, dim, dim_path = star_tables
+    kw = ({"max_groups": 2} if state == "small_state" else SMALL_STATE)
+    engines = _engines({"big": fact}, batch_size=2048, **kw)
+    for eng in engines:
+        if dim_from == "register":
+            eng.register("dim", dim)
+        else:
+            eng.load_table("dim", dim_path)
+    port, jax_eng, oracle = engines
+    assert port.catalog.is_cached("dim")
+    sql = STAR_QUERIES[name]
+    res = port.query(sql)
+    assert res.metrics["backend"] == "torch-streaming", res.metrics
+    keys = [c for c in ("g", "w", "m") if c in res.schema.names] or None
+    _same(_frame(res, keys), _frame(oracle.query(sql), keys), sql)
+    with pytest.raises(IndexError):
+        jax_eng.query(sql).to_pydict()
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_streamed_minmax_over_unsorted_dictionary(star_tables):
+    """A registered batch may carry a dictionary out of string order: the
+    build side is re-coded onto the sorted dictionary as it is uploaded, so
+    MIN/MAX over codes is MIN/MAX over strings."""
+    from gpu_olap_tpu_torch.interop.columnar import (Column, ColumnBatch,
+                                                      DType, Field, Schema)
+
+    fact, _, _ = star_tables
+    port, _, oracle = _engines({"big": fact}, batch_size=2048, **SMALL_STATE)
+    words = np.array(["mu", "zeta", "alpha", "beta"], dtype=object)
+    codes = (np.arange(40) % 4).astype(np.int64)
+    port.register("dim", ColumnBatch(
+        Schema([Field("k", DType.INT64), Field("g", DType.STRING)]),
+        [Column(np.arange(40, dtype=np.int64)), Column(codes, None, words)],
+        40))
+    oracle.register("dim", {"k": np.arange(40, dtype=np.int64),
+                            "g": words[codes]})
+    sql = ("SELECT b.k % 3 AS m, MIN(d.g) AS lo, MAX(d.g) AS hi, "
+           "COUNT(*) AS n FROM big b JOIN dim d ON b.k = d.k "
+           "GROUP BY b.k % 3")
+    res = port.query(sql)
+    assert res.metrics["backend"] == "torch-streaming"
+    got = _frame(res, ["m"])
+    _same(got, _frame(oracle.query(sql), ["m"]), sql)
+    assert set(got.lo) == {"alpha"} and set(got.hi) == {"zeta"}
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_streamed_string_case_loads_whole(big_parquet):
+    """A string value whose dictionary is not that of a build column (here
+    a CASE over string literals on the streamed scan) is refused before the
+    first chunk: the table loads whole onto the device and the groups are
+    numpy's (the JAX package's oracle loses the CASE's dictionary,
+    ROADMAP.md C)."""
+    path, table = big_parquet
+    port = _engines({"big": path}, **SMALL_STATE)[0]
+    case = "CASE WHEN v > 500 THEN 'hi' ELSE 'lo' END"
+    sql = (f"SELECT {case} AS band, COUNT(*) AS n, SUM(v) AS s FROM big "
+           f"GROUP BY {case}")
+    res = port.query(sql)
+    assert res.metrics["backend"] == "torch-cpu"
+    v = table.column("v").to_numpy()
+    hi = v > 500
+    exp = pd.DataFrame({"band": ["hi", "lo"], "n": [hi.sum(), (~hi).sum()],
+                        "s": [v[hi].sum(), v[~hi].sum()]})
+    _same(_frame(res, ["band"]), exp, sql)
+
+
+@pytest.fixture(scope="module")
+def ts_parquet(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("tts") / "ts.parquet")
+    rng = np.random.default_rng(5)
+    n = 6000
+    lo = np.datetime64("2020-01-01", "ms").astype(np.int64)
+    hi = np.datetime64("2023-01-01", "ms").astype(np.int64)
+    pq.write_table(pa.table({
+        "ts": pa.array(rng.integers(lo, hi, n).astype("datetime64[ms]")),
+        "k": rng.integers(0, 30, n).astype(np.int64),
+        "v": (rng.integers(0, 1000, n) + 10 ** 12).astype(np.int64),
+    }), path)
+    return path
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT MIN(ts) AS mn, MAX(ts) AS mx FROM big",
+    "SELECT MIN(v) AS mn, COUNT(*) AS n FROM big",
+    "SELECT MIN(d.w) AS mn FROM big b JOIN dim d ON b.k = d.k",
+], ids=["timestamp", "int64", "join"])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_streamed_global_min_where_jax_gives_zero(ts_parquet, sql):
+    """Every chunk holds rows, yet JAX's streamed global MIN comes back as
+    0 (1970-01-01 for a timestamp): its one-row state enters the first
+    merge as valid, holding 0.  The port's state turns valid only once it
+    has absorbed a row."""
+    engines = _engines({"big": ts_parquet}, batch_size=2048, **SMALL_STATE)
+    _register(engines, "dim", {"k": np.arange(30, dtype=np.int64),
+                               "w": np.arange(30, dtype=np.int64) + 8})
+    port, jax_eng, oracle = engines
+    res = port.query(sql)
+    assert res.metrics["backend"] == "torch-streaming"
+    exp = oracle.query(sql).to_pandas()
+    _same(_frame(res, None), exp, sql)
+    assert exp.mn.astype("int64")[0] > 0
+    assert jax_eng.query(sql).to_pandas().mn.astype("int64")[0] == 0
