@@ -28,7 +28,11 @@ Phases, each printing one JSON line:
    from ``utils.metrics``);
 5. engine_bench: ``TorchOlapEngine(device="cuda")`` runs the filter and
    GROUP BY bench queries on ``bench_torch.py``'s tables (exact against
-   numpy, launch counts > 0); then bench: the bench surface as a user runs
+   numpy, launch counts > 0); engine_typed_literal, one line per query:
+   the same filter with its bound as a string literal (``v > '500'``: one
+   filter_agg launch) and the GROUP BY under ``WHERE k < '1000'`` (one
+   seg_agg launch over the rows the WHERE keeps), each exact on
+   ``torch-cuda``; then bench: the bench surface as a user runs
    it, ``bench_torch.py --quick`` (every config in its own process, the
    1B-row GROUP BY at 4M rows) and ``bench_dist_torch.py --devices 1 8
    --rows-per-dev 65536``, uniform and ``--zipf``: each exits 0 with its
@@ -70,8 +74,8 @@ Phases, each printing one JSON line:
 12. engine_distributed: ``TorchOlapEngine`` with ``mesh_shape=(8,)`` on the
     same logical mesh: the distributed query corpus on 1M rows against the
     CPU oracle, then a config-5 SQL join + GROUP BY on 8M rows per side
-    (uniform, then Zipf keys on the skew-broadcast route), exact against
-    numpy;
+    (uniform, then Zipf keys on the skew-broadcast route), and the uniform
+    join under a string-literal bound on its key, exact against numpy;
 13. engine_streaming, one line per query: out-of-core execution through
     ``TorchOlapEngine(device="cuda")`` from Parquet files written to a
     temporary directory (removed at the end): bench.py's 1B-row table
@@ -190,6 +194,11 @@ CLI_ROWS = 8_388_608
 CLI_KEYS = 262_144
 # the bench phase: each script run is stopped past this many seconds
 BENCH_TIMEOUT_S = 600
+# the bench queries with their bounds written as string literals
+TYPED_FILTER_SQL = bt.FILTER_SQL.replace("v > 500", "v > '500'")
+TYPED_GROUP_BOUND = 1000
+TYPED_GROUP_SQL = bt.GROUPBY_SQL.replace(
+    "FROM t ", f"FROM t WHERE k < '{TYPED_GROUP_BOUND}' ")
 
 
 def _say(phase: str, **kv) -> None:
@@ -723,6 +732,8 @@ def _run_bench(dev, card: str):
     bt.check_answer("filter_agg", fa_res, fa_exp)
     bt.check_answer("groupby", gb_res, gb_exp)
     n_groups = len(gb_exp["k"])
+    keep = np.asarray(gb_exp["k"]) < TYPED_GROUP_BOUND
+    typed_gb_exp = {c: np.asarray(col)[keep] for c, col in gb_exp.items()}
     del gb_exp
 
     _say("engine_bench", card=card, cold_seconds_both=cold_s,
@@ -731,7 +742,35 @@ def _run_bench(dev, card: str):
                   **_timed_query(gb_eng, gb_cfg.sql, GROUPBY_ROWS)},
          peak_device_bytes=torch.cuda.max_memory_allocated(),
          launches=launches, exact=True)
-    del fa_eng, gb_eng, fa_res, gb_res
+
+    # the same bounds written as string literals, which the planner types by
+    # their column: the filter takes filter_agg once, the GROUP BY seg_agg
+    # over the rows its WHERE keeps; both count into the main path's launches
+    typed = [("filter_agg", fa_eng, TYPED_FILTER_SQL, fa_exp, FILTER_ROWS),
+             ("seg_agg", gb_eng, TYPED_GROUP_SQL, typed_gb_exp,
+              GROUPBY_ROWS)]
+    for kernel, eng, sql, exp, rows in typed:
+        before = dict(_build.launches)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = eng.query(sql)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        run = {k: _build.launches[k] - before.get(k, 0)
+               for k in ("filter_agg", "seg_agg")}
+        if res.metrics["backend"] != "torch-cuda":
+            raise AssertionError(f"{sql}: backend {res.metrics['backend']}")
+        if run[kernel] != 1 or sum(run.values()) != 1:
+            raise AssertionError(f"{sql}: launches {run}, want one {kernel}")
+        bt.check_answer(sql, res, exp)
+        launches[kernel] += 1
+        _say("engine_typed_literal", card=card, sql=sql,
+             backend=res.metrics["backend"], routes=res.metrics["routes"],
+             groups=len(exp[next(iter(exp))]), cold_seconds=cold,
+             **_timed_query(eng, sql, rows),
+             peak_device_bytes=torch.cuda.max_memory_allocated(),
+             launches=run, exact=True)
+    del fa_eng, gb_eng, fa_res, gb_res, res
     torch.cuda.empty_cache()
     return launches
 
@@ -1535,6 +1574,11 @@ DIST_CORPUS = [
 # BASELINE config 5 as SQL: the join + GROUP BY of the step
 DIST_JOIN_SQL = ("SELECT l.k, SUM(l.v * r.v) AS s, COUNT(*) AS n FROM l "
                  "JOIN r ON l.k = r.k GROUP BY l.k")
+# the same join under a bound on the key written as a string literal: the
+# keys below a quarter of config 5's key space
+DIST_TYPED_BOUND = (DIST_JOIN_ROWS // 16) // 4
+DIST_TYPED_SQL = DIST_JOIN_SQL.replace(
+    " GROUP BY", f" WHERE l.k < '{DIST_TYPED_BOUND}' GROUP BY")
 
 
 def _run_engine_distributed(dev, card: str):
@@ -1610,6 +1654,23 @@ def _run_engine_distributed(dev, card: str):
             "wall_min_s": min(walls), "wall_max_s": max(walls),
             "rows_per_s": 2 * DIST_JOIN_ROWS / wall,
             "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        if not zipf:
+            t1 = time.perf_counter()
+            res = eng.query(DIST_TYPED_SQL)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            if res.metrics["backend"] != "torch-distributed" or \
+                    "torch_dist_join" not in res.metrics["routes"]:
+                raise AssertionError(f"{DIST_TYPED_SQL}: {res.metrics}")
+            tk = keys[keys < DIST_TYPED_BOUND]
+            out = res.to_pandas().sort_values("k")
+            _exact(DIST_TYPED_SQL,
+                   {c: out[c].to_numpy() for c in out.columns},
+                   {"k": tk, "s": exp_s[tk], "n": exp_n[tk]})
+            joins["typed_literal"] = {
+                "sql": DIST_TYPED_SQL, "groups": int(len(tk)),
+                "matches": int(exp_n[tk].sum()),
+                "routes": res.metrics["routes"], "wall_first_s": wall}
         eng.drop_table("l")
         eng.drop_table("r")
         del lk, rk, lv, rv, res

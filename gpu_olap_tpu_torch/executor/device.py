@@ -1004,10 +1004,13 @@ class _Interpreter:
                 _np_kind(lk_expr.dtype) != "i":
             return None
         n_left_cols = len(join.left.schema)
+        # a STRING key lane holds codes of the two sides' unified dictionary,
+        # which no expression reads: its column rides as a probe payload
+        key_idx = set() if lk_expr.dtype is DType.STRING else {lk_expr.index}
 
         def side_of(e):
             idxs = set(_expr_col_indices(e))
-            if idxs <= {lk_expr.index}:
+            if idxs <= key_idx:
                 return "key"
             if all(i < n_left_cols for i in idxs):
                 return "probe"
@@ -1093,12 +1096,14 @@ class _Interpreter:
 
         i32max = (1 << 31) - 8
         lanes = []
+        lane_dicts = []  # a string lane's codes keep its column's dictionary
         for sd, expr in payload_terms:
             if sd == "probe":
                 expr_, batch = expr, left
             else:
                 expr_, batch = shift_right(expr), right
-            data, valid, _ = self.eval_expr(expr_, batch)
+            data, valid, dictionary = self.eval_expr(expr_, batch)
+            lane_dicts.append(dictionary)
             if valid is not None:
                 return None  # nullable term: the general paths handle it
             rng = self._expr_range(expr_, batch)
@@ -1172,8 +1177,10 @@ class _Interpreter:
                 _tag, func, sd, ref = spec
                 data, ok = term_lane(sd, ref)
                 red = _masked_minmax(func, data.to(torch_dtype(acc)), ok, acc)
+                dct = (lane_dicts[ref] if a.out_dtype is DType.STRING
+                       else None)
                 cols.append(DevCol(torch.where(total > 0, red,
-                                               0).reshape(1), has))
+                                               0).reshape(1), has, dct))
         GLOBAL_METRICS.bump("torch_sorted_global_join_agg")
         return DevBatch(plan.schema, cols, 1, None)
 

@@ -907,8 +907,10 @@ class StreamingAggregator:
             dicts = [None] * (len(agg.group_exprs) + len(agg.aggs))
         state_keys, state_partials, state_valid = state
         valid = state_valid.cpu().numpy()
-        if not agg.group_exprs and not valid.any():
-            # zero rows streamed: a global aggregate still yields one row
+        empty = not agg.group_exprs and not valid.any()
+        if empty:
+            # no row reached the state: a global aggregate still yields one
+            # row, COUNT 0 and every other aggregate NULL
             valid = np.ones_like(valid)
         idx = np.nonzero(valid)[0]
         if idx.size and idx[-1] == idx.size - 1:
@@ -937,7 +939,11 @@ class StreamingAggregator:
             for pname, _pfunc, _pdtype in spec_group:
                 vals[pname] = state_partials[p_i].cpu().numpy()[idx]
                 p_i += 1
-            cols.append(_finalize_agg(a, vals, dictionary))
+            col = _finalize_agg(a, vals, dictionary)
+            if empty and a.func != "count":
+                col = Column(np.zeros_like(col.data), np.zeros(1, bool),
+                             dictionary)
+            cols.append(col)
         return ColumnBatch(agg.schema, cols, len(idx))
 
 

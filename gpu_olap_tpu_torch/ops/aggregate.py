@@ -75,7 +75,9 @@ def groupby_aggregate(
 
     ``keys`` entries are (code, null_flags); null_flags may be None when the
     key is statically null-free.  Invalid rows (``row_valid`` False) fold
-    into the first sort operand and sort after every valid row.
+    into the first sort operand and sort after every valid row; the
+    ``seg_agg`` path instead sorts only the valid rows, gathered first (one
+    host sync for their count), where the mask is the only extra operand.
 
     ``aggs`` entries: {func, values (tensor or None for count(*)),
     valid (tensor|None), distinct (bool), acc_dtype (np dtype), np_kind,
@@ -228,9 +230,13 @@ def groupby_aggregate(
         need_perm = True
         plans.append(("fallback", None))
 
-    seg = _maybe_seg_agg_path(key_ops, ride_ops, ride_null_slot, payloads,
+    seg_keys, keep = key_ops, None
+    if inv is not None and k0n is None:
+        # the row mask is the first operand alone: drop it, keep the rows
+        seg_keys, keep = key_ops[1:], row_valid
+    seg = _maybe_seg_agg_path(seg_keys, ride_ops, ride_null_slot, payloads,
                               need_perm, plans, aggs, n, max_groups,
-                              allow_kernel)
+                              allow_kernel, keep)
     if seg is not None:
         return seg
 
@@ -370,10 +376,11 @@ def groupby_aggregate(
 
 def _maybe_seg_agg_path(key_ops, ride_ops, ride_null_slot, payloads,
                         need_perm, plans, aggs, n, max_groups: int,
-                        allow_kernel: bool):
+                        allow_kernel: bool, keep=None):
     """The ``seg_agg`` kernel after the sort, for the hot shape: ONE
     null-free int32 group key over rows that are all valid (a row mask
-    would be a second sort operand) and aggregates that all ride the sort:
+    would be a second sort operand; ``keep``, a bool mask, gathers the
+    rows it keeps before the sort) and aggregates that all ride the sort:
     COUNT(*), plus
     SUM/MIN/MAX/AVG/COUNT over one null-free int32 argument.
 
@@ -411,6 +418,12 @@ def _maybe_seg_agg_path(key_ops, ride_ops, ride_null_slot, payloads,
         val_lane = None
     else:
         return None
+    if keep is not None:
+        rows = torch.nonzero(keep).squeeze(1)
+        if rows.numel() < MIN_ROWS:
+            return None
+        k0 = k0[rows]
+        val_lane = None if val_lane is None else val_lane[rows]
 
     if val_lane is None:
         (sk,) = lexsort([k0], 1)

@@ -18,6 +18,7 @@ hash join, ``:140-155``).
 from __future__ import annotations
 
 import dataclasses
+import re
 import warnings
 from typing import List, Optional, Tuple
 
@@ -299,20 +300,60 @@ def _temporal_value(text: str, dtype: DType) -> int:
     return int(value.astype(np.int64))
 
 
+# the text of an untyped literal that PostgreSQL reads as a BIGINT, or as a
+# DOUBLE PRECISION number (surrounding spaces allowed)
+_INTEGER_TEXT = re.compile(r"\s*[+-]?[0-9]+\s*")
+_DECIMAL_TEXT = re.compile(
+    r"\s*[+-]?([0-9]+\.?[0-9]*|\.[0-9]+)([eE][+-]?[0-9]+)?\s*")
+
+
+def _literal_as(value, dtype: DType):
+    """A literal's value, typed by the expression of type ``dtype`` it is
+    compared with.  A string against an INT64, FLOAT64 or temporal
+    expression becomes that type's value; a number against a STRING
+    expression becomes its text (``str(value)``, the text the oracle
+    compares with).  A string that does not read as the type, and a BOOL
+    against a string, raise ``PlanError``.  Other values (NULL, and any
+    pair that is not string against non-string) stay as they are."""
+    if value is None or (dtype is DType.STRING) == isinstance(value, str):
+        return value
+    if dtype is DType.STRING:
+        if isinstance(value, bool):
+            raise PlanError(f"cannot compare a string with {value!r}")
+        return str(value)
+    if dtype in _TEMPORAL_UNIT:
+        return _temporal_value(value, dtype)
+    if dtype is DType.INT64 and _INTEGER_TEXT.fullmatch(value):
+        number = int(value)
+        if np.iinfo(np.int64).min <= number <= np.iinfo(np.int64).max:
+            return number
+    elif dtype is DType.FLOAT64 and _DECIMAL_TEXT.fullmatch(value):
+        number = float(value)
+        if np.isfinite(number):
+            return number
+    raise PlanError(f"{value!r} is not a {dtype.value} value")
+
+
 def _typed_comparison(left: PhysExpr, right: PhysExpr):
-    """A comparison of a TIMESTAMP_MS or DATE32 expression with a string
-    literal compares with the literal's instant in the column's unit; with
-    any other string expression it is refused (never compared digit by
-    digit)."""
-    for this, other in ((left, right), (right, left)):
-        if this.dtype in _TEMPORAL_UNIT and other.dtype is DType.STRING:
-            if not isinstance(other, PhysLiteral):
-                raise PlanError(f"cannot compare {this.dtype.value} with a "
-                                "string expression")
-            lit = PhysLiteral(this.dtype,
-                              _temporal_value(other.value, this.dtype))
-            return (this, lit) if this is left else (lit, this)
-    return left, right
+    """A comparison of a string with a non-string expression: the side that
+    is a literal takes the other side's type (``_literal_as``), a string
+    literal first; two non-literals raise ``PlanError``.  So no comparison
+    the executors see has a STRING side facing a non-STRING one."""
+    if (left.dtype is DType.STRING) == (right.dtype is DType.STRING):
+        return left, right
+    string, number = (left, right) if left.dtype is DType.STRING \
+        else (right, left)
+    if isinstance(string, PhysLiteral):
+        string = PhysLiteral(number.dtype,
+                             _literal_as(string.value, number.dtype))
+    elif isinstance(number, PhysLiteral):
+        number = PhysLiteral(DType.STRING,
+                             _literal_as(number.value, DType.STRING))
+    else:
+        raise PlanError(f"cannot compare {number.dtype.value} with a "
+                        "string expression")
+    return (string, number) if left.dtype is DType.STRING \
+        else (number, string)
 
 
 def lower_expr(e: L.Expr, schema: Schema) -> PhysExpr:
@@ -326,8 +367,8 @@ def lower_expr(e: L.Expr, schema: Schema) -> PhysExpr:
     if isinstance(e, L.BinaryOp):
         left = lower_expr(e.left, schema)
         right = lower_expr(e.right, schema)
-        # comparisons of string column vs string literal: map literal into
-        # dictionary space at execution time (kept as STRING literal here)
+        # a string literal against a string column stays a STRING literal
+        # (mapped into dictionary space at execution time)
         if e.op in _COMPARISONS:
             left, right = _typed_comparison(left, right)
         return PhysBinary(_arith_result(e.op, left.dtype, right.dtype), e.op, left, right)
@@ -345,10 +386,8 @@ def lower_expr(e: L.Expr, schema: Schema) -> PhysExpr:
     if isinstance(e, L.InList):
         if all(isinstance(i, L.Literal) for i in e.items):
             operand = lower_expr(e.expr, schema)
-            values = tuple(i.value for i in e.items)
-            if operand.dtype in _TEMPORAL_UNIT:
-                values = tuple(_temporal_value(v, operand.dtype)
-                               if isinstance(v, str) else v for v in values)
+            values = tuple(_literal_as(i.value, operand.dtype)
+                           for i in e.items)
             return PhysInList(DType.BOOL, operand, values, e.negated)
         ors: L.Expr = L.BinaryOp("=", e.expr, e.items[0])
         for item in e.items[1:]:
@@ -599,11 +638,11 @@ class _Planner:
         ll = try_side(e.left, lschema)
         rr = try_side(e.right, rschema)
         if ll is not None and rr is not None:
-            return ll, rr
+            return _typed_comparison(ll, rr)
         lr = try_side(e.right, lschema)
         rl = try_side(e.left, rschema)
         if lr is not None and rl is not None:
-            return lr, rl
+            return _typed_comparison(lr, rl)
         return None
 
     def _choose_join_strategy(self, left: PhysicalPlan, right: PhysicalPlan,

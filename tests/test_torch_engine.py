@@ -606,3 +606,66 @@ def test_string_case_groups_where_jax_raises():
         jax_eng.register("t", {"v": v})
         with pytest.raises(IndexError):
             jax_eng.query(sql).to_pydict()
+
+
+@pytest.mark.parametrize("sql,cols", [
+    ("SELECT MIN(t1.s) AS lo, MAX(t1.s) AS hi, COUNT(*) AS n FROM t1 "
+     "JOIN t2 ON t1.k = t2.k", ("lo", "hi", "n")),
+    ("SELECT MIN(t.a) AS a, MAX(t.s) AS hi FROM t1 t JOIN t2 ON t.k = t2.k",
+     ("a", "hi")),
+    ("SELECT MIN(t2.g) AS glo, MAX(t2.g) AS ghi, SUM(t1.a) AS sa FROM t1 "
+     "JOIN t2 ON t1.k = t2.k", ("glo", "ghi", "sa")),
+    ("SELECT MAX(t1.s) AS hi, MIN(t2.g) AS glo FROM t1 JOIN t2 "
+     "ON t1.k = t2.k WHERE t1.a > 50", ("hi", "glo")),
+    # joined on the string itself: the key lane holds unified codes
+    ("SELECT MIN(t1.s) AS lo, SUM(t2.k) AS sk FROM t1 JOIN t2 "
+     "ON t1.s = t2.h", ("lo", "sk")),
+    ("SELECT MAX(t2.h) AS hh, MIN(t1.s) AS lo, COUNT(*) AS n, "
+     "SUM(t1.a) AS sa FROM t1 JOIN t2 ON t1.s = t2.h WHERE t1.a > 50",
+     ("hh", "lo", "n", "sa")),
+])
+def test_global_join_string_minmax_where_jax_raises(sql, cols):
+    """A global MIN/MAX of a string column over an inner join, reduced in
+    the merge-sorted key space: the string lane's codes rode the sort
+    without their dictionary, and reading the result raised IndexError (the
+    JAX device engine still does).  The port keeps each lane's dictionary;
+    joined on the string column, the column rides as a payload lane.
+    Unmatched rows on both sides hold the extreme strings."""
+    rng = np.random.default_rng(7)
+    n, m = 3000, 120
+    k1 = rng.integers(0, 100, n).astype(np.int64)
+    s = np.array(["delta", "echo", "foxtrot", "golf"],
+                 dtype=object)[rng.integers(0, 4, n)]
+    s[k1 % 2 == 1] = np.where(rng.random(int((k1 % 2 == 1).sum())) < 0.5,
+                              "alpha", "zulu")
+    k2 = np.concatenate([2 * rng.integers(0, 50, m - 2), [201, 203]])
+    g = np.array(["kilo", "lima", "mike", "oscar"],
+                 dtype=object)[rng.integers(0, 4, m)]
+    g[-2:] = ["aardvark", "zzz"]
+    h = np.array(["alpha", "delta", "golf", "hotel"],
+                 dtype=object)[rng.integers(0, 4, m)]
+    a = rng.integers(0, 100, n).astype(np.int64)
+    tables = {"t1": {"k": k1, "a": a, "s": s}, "t2": {"k": k2, "g": g, "h": h}}
+    port = _port()
+    for name, t in tables.items():
+        port.register(name, t)
+    res = port.query(sql)
+    assert "torch_sorted_global_join_agg" in res.metrics["routes"]
+    got = res.to_pydict()
+    assert list(got) == list(cols)
+    lkey, rkey = (s, h) if "t2.h" in sql else (k1, k2)
+    li, rj = np.nonzero(lkey[:, None] == rkey[None, :])
+    if "WHERE" in sql:
+        li, rj = li[a[li] > 50], rj[a[li] > 50]
+    want = {"lo": s[li].min(), "hi": s[li].max(), "n": li.size,
+            "a": a[li].min(), "glo": g[rj].min(), "ghi": g[rj].max(),
+            "sa": a[li].sum(), "hh": h[rj].max(), "sk": k2[rj].sum()}
+    for c in cols:
+        assert got[c][0] == want[c], c
+    oracle, device = make_engine("cpu"), make_engine("device")
+    mirror_tables(port, oracle, device)
+    exp = oracle.query(sql).to_pydict()
+    assert {c: list(v) for c, v in got.items()} == \
+        {c: list(v) for c, v in exp.items()}
+    with pytest.raises(IndexError):
+        device.query(sql).to_pydict()

@@ -152,17 +152,19 @@ def test_non_streamable_falls_back(big_parquet):
 
 
 def test_streamed_global_agg_empty_filter(big_parquet):
+    """No row passes the filter: COUNT 0 and a NULL SUM, the oracle's
+    answer; JAX's streamed engine gives its empty state's SUM, 0
+    (ROADMAP.md C)."""
     path, _ = big_parquet
     port, jax_eng, oracle = _engines({"big": path}, **SMALL_STATE)
     sql = "SELECT COUNT(*) AS n, SUM(v) AS s FROM big WHERE v > 100000"
     res = port.query(sql)
     assert res.metrics["backend"] == "torch-streaming"
-    got = res.to_pydict()
-    assert got["n"][0] == 0 == oracle.query(sql).to_pydict()["n"][0]
-    # no row: both engines give the empty state's values
+    got = _frame(res, None)
+    _same(got, _frame(oracle.query(sql), None), sql)
+    assert got.n[0] == 0 and pd.isna(got.s[0])
     exp = jax_eng.query(sql).to_pydict()
-    assert {k: list(v) for k, v in got.items()} == \
-        {k: list(v) for k, v in exp.items()}
+    assert (list(exp["n"]), list(exp["s"])) == ([0], [0])
 
 
 def test_streamed_join_aggregate(big_parquet):
@@ -586,3 +588,37 @@ def test_streamed_global_min_where_jax_gives_zero(ts_parquet, sql):
     _same(_frame(res, None), exp, sql)
     assert exp.mn.astype("int64")[0] > 0
     assert jax_eng.query(sql).to_pandas().mn.astype("int64")[0] == 0
+
+
+@pytest.mark.parametrize("sql,jax_wrong", [
+    ("SELECT SUM(v) AS s, MIN(v) AS mn, MAX(f) AS mx, AVG(f) AS a, "
+     "COUNT(*) AS n FROM big WHERE k > 1000", True),
+    ("SELECT MIN(b.v) AS mn, SUM(d.w) AS s, COUNT(*) AS n FROM big b "
+     "JOIN dim d ON b.k = d.k", False),
+], ids=["filter", "join"])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_streamed_global_aggregate_over_no_rows_is_null(big_parquet, sql,
+                                                        jax_wrong):
+    """Every chunk streams, but no row reaches the aggregate (a filter no
+    row passes; a dimension whose keys no fact row has): COUNT is 0 and
+    every other aggregate NULL, as the oracle gives.  Behind the filter the
+    port's one-row state used to yield its empty lanes (0), as JAX's
+    streamed engine still does (its MIN reads -1); the join already gave
+    NULLs in both."""
+    path, _ = big_parquet
+    engines = _engines({"big": path}, **SMALL_STATE)
+    _register(engines, "dim", {"k": np.arange(500, 530, dtype=np.int64),
+                               "w": np.arange(30, dtype=np.int64)})
+    port, jax_eng, oracle = engines
+    res = port.query(sql)
+    assert res.metrics["backend"] == "torch-streaming"
+    got = _frame(res, None)
+    exp = _frame(oracle.query(sql), None)
+    _same(got, exp, sql)
+    assert got.n[0] == 0
+    assert got.drop(columns="n").isna().all(axis=None)
+    jexp = _frame(jax_eng.query(sql), None)
+    if jax_wrong:
+        assert (jexp.s[0], jexp.mn[0], jexp.mx[0]) == (0, -1, 0.0)
+    else:
+        _same(jexp, exp, sql)
