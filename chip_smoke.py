@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                      # about 14 minutes, one H100
     python3 chip_smoke.py --only multiprocess  # the build and phase 11 alone
+    python3 chip_smoke.py --only corpus        # the build and phase 8 alone
 
 Phases, each printing one JSON line:
 
@@ -48,8 +49,25 @@ Phases, each printing one JSON line:
    versions on the inputs the stream join gave them, with both times, the
    bound and one PyTorch call for the same function (``x[:, mask]`` and
    ``repeat_interleave`` on the stacked streams);
-8. engine_vs_oracle: small single-table, join and UNION ALL queries against
-   the CPU oracle;
+8. engine_corpus: every query corpus and fuzzer of the port's CPU tests
+   (``tests/torch_corpus.py``) on the card, each query on the backend label
+   its part names and equal to the port's NumPy oracle (rows as multisets,
+   and under ORDER BY its keys in order; integers and strings exactly,
+   floats within ``rtol = atol = 1e-12``; a float SUM/AVG over a scaled
+   table may instead be held to ``n * 2**-52 * sum(|x|)``, printed per
+   column) or to numpy, one line per part: (a) the 17 small single-table,
+   join and UNION ALL queries, then the parity corpus with the UNIONs, the
+   kernels' shapes and the edge values at 1 and 256 times the fact tables
+   (``sales`` 1.28M rows), the last two again with ``max_groups=16``, on
+   ``torch-cuda``; (b) the 60 fuzz seeds at 1 and 64 times ``t1``; (c) the
+   40 mesh seeds of the path fuzzer on eight logical shards (a third on
+   ``torch-distributed``); (d) its 40 streamed seeds from Parquet (a third
+   on ``torch-streaming``); (e) the 40 star-join seeds on
+   ``torch-streaming``; (f) the typed-literal and temporal predicate
+   matrices on the card, the shards and streamed, against numpy.
+   filter_agg, seg_agg, stream_compact and expand_fill must launch in
+   parts a and b; each line gives its queries, labels, launches and
+   seconds;
 9. dist_step (uniform, then Zipf): BASELINE config 5's distributed join +
    group-by step (``bench_dist_torch.py``'s data and capacity planning, through
    ``partition_histogram`` and so the radix_hist kernel) on a mesh of eight
@@ -120,7 +138,8 @@ Phases, each printing one JSON line:
 
 The eight shards on one card measure the distributed code path, not
 scaling; ``multiprocess`` on four cards does (``--only multiprocess`` runs
-phases 1, 2, 11 and 20 and prints no kernel line).  The line before the
+phases 1, 2, 11 and 20 and prints no kernel line; ``--only corpus`` phases
+1, 2, 8 and 20).  The line before the
 last is a JSON object with one entry per kernel (radix_hist's launches
 include the ranks'); the last line is ``{"ok": true, "device": {...}}``.
 Any failure raises.
@@ -1076,76 +1095,315 @@ def _run_joins(dev, card: str):
     return launches, kern
 
 
-def _run_oracle(dev):
-    """Small single-table and join queries against the CPU oracle."""
+def _corpus():
+    """``tests/torch_corpus.py`` of this checkout (numpy, pyarrow and the
+    port only)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_corpus
+
+    return torch_corpus
+
+
+def _oracle(eng):
+    """The port's NumPy oracle over ``eng``'s catalog (its result cache on:
+    a query asked again of the same tables is answered once)."""
     from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
 
-    small = TorchOlapEngine(EngineConfig(enable_cache=False), device=dev)
-    oracle = TorchOlapEngine(EngineConfig(backend="cpu", enable_cache=False),
-                             device="cpu")
-    oracle.catalog = small.catalog
-    g = np.random.default_rng(2)
-    n = 200_000
-    small.register("t", {"k": np.arange(n) % 7, "v": np.arange(n, dtype=float)})
-    small.register("s", {"a": g.integers(-40, 40, n), "b": g.integers(0, 9, n),
-                         "c": g.integers(-1000, 1000, n),
-                         "r": g.choice(["EU", "US", "APAC"], n)})
-    # join tables: duplicate keys on both sides, partial overlap, nulls, a
-    # unique key (lookup join) and string keys with different dictionaries
-    lt_v = g.normal(0, 10, 3000)
-    lt_v[g.random(3000) < 0.1] = np.nan
-    small.register("lt", {"k": g.integers(0, 300, 3000),
-                          "g": g.integers(0, 3, 3000), "v": lt_v,
-                          "tag": g.choice(["x", "y", "z"], 3000)})
-    small.register("rt", {"k": g.integers(100, 400, 2000),
-                          "g": g.integers(0, 3, 2000),
-                          "w": g.integers(0, 1000, 2000),
-                          "tag": g.choice(["y", "z", "q"], 2000)})
-    small.register("cust", {"id": np.arange(-40, 260),
-                            "name": np.array([f"c{i:03d}" for i in range(300)]),
-                            "region": g.choice(["EU", "US", "APAC"], 300)})
-    queries = [
-        "SELECT k, SUM(v) AS s FROM t GROUP BY k ORDER BY s DESC",
-        "SELECT a, c FROM s WHERE c > 900 ORDER BY c DESC, a LIMIT 25",
-        "SELECT DISTINCT a, r FROM s",
-        "SELECT a, b, SUM(c) AS sc, MIN(c) AS mn, COUNT(*) AS n "
-        "FROM s GROUP BY a, b",
-        "SELECT COUNT(*) AS n, SUM(c) AS sc, MIN(c) AS mn, MAX(c) AS mx "
-        "FROM s WHERE a >= 0",
-        # joins of the parity corpus's shapes
-        "SELECT l.v, r.w FROM lt l JOIN rt r ON l.k = r.k",
-        "SELECT l.v, r.w FROM lt l LEFT JOIN rt r ON l.k = r.k",
-        "SELECT l.v, r.w FROM lt l RIGHT JOIN rt r ON l.k = r.k",
-        "SELECT l.v, r.w FROM lt l FULL JOIN rt r ON l.k = r.k",
-        "SELECT l.v FROM lt l JOIN rt r ON l.k = r.k AND l.v > r.w",
-        "SELECT l.v, r.w FROM lt l JOIN rt r ON l.k = r.k AND l.g = r.g",
-        "SELECT l.tag, COUNT(*) AS n FROM lt l JOIN rt r ON l.tag = r.tag "
-        "GROUP BY l.tag",
-        "SELECT s.c, c.name FROM s JOIN cust c ON s.a = c.id WHERE s.c > 900",
-        "SELECT c.region, SUM(s.c) AS t FROM s JOIN cust c ON s.a = c.id "
-        "GROUP BY c.region",
-        "SELECT COUNT(*) AS n, SUM(l.v) AS sv, MIN(r.w) AS mw "
-        "FROM lt l JOIN rt r ON l.k = r.k",
-        "SELECT c.region, COUNT(*) AS n, SUM(r.w) AS sw FROM lt l "
-        "JOIN rt r ON l.k = r.k JOIN cust c ON l.k = c.id "
-        "WHERE l.g = 1 GROUP BY c.region",
-        # UNION ALL: strings over two dictionaries, int with float
-        "SELECT r, c, a FROM s WHERE a = 3 UNION ALL "
-        "SELECT region, id, v FROM cust JOIN t ON cust.id = t.k "
-        "WHERE t.v < 30",
-    ]
-    for q in queries:
-        r = small.query(q)
-        if r.metrics["backend"] != "torch-cuda":
-            raise AssertionError(f"{q}: backend {r.metrics['backend']}")
-        ordered = "ORDER BY" in q
-        got = r.to_pandas()
-        exp = oracle.query(q).to_pandas()
-        if not ordered:
-            got, exp = _canon(got), _canon(exp)
-        _same_frame(got, exp, q)
-    torch.cuda.synchronize()
-    _say("engine_vs_oracle", queries=len(queries), equal=True)
+    oracle = TorchOlapEngine(EngineConfig(backend="cpu"), device="cpu")
+    oracle.catalog = eng.catalog
+    return oracle
+
+
+class _Part:
+    """One part of ``engine_corpus``: every query must run on one of the
+    backend labels it allows and equal its reference.  A query that differs,
+    runs on another label or raises is recorded and the part goes on, so
+    one run names every difference; ``_run_corpus`` fails at its end if any
+    part recorded one.  Counts the queries, the labels and the kernels'
+    launches over the part."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.queries = 0
+        self.backends: dict = {}
+        self.held: list = []
+        self.differences: list = []
+        self.launched: dict = {}
+        self.t0 = time.perf_counter()
+        self.l0 = _launches()
+
+    def differ(self, what: str, error: str, **detail) -> None:
+        self.differences.append({"query": what, "error": error[:2000],
+                                 **detail})
+
+    def label(self, res, allowed, what: str) -> bool:
+        b = res.metrics["backend"]
+        self.queries += 1
+        self.backends[b] = self.backends.get(b, 0) + 1
+        if b not in allowed:
+            self.differ(what, f"backend {b}, not one of {list(allowed)}")
+        return b in allowed
+
+    def check(self, eng, oracle, sql: str, what: str, allowed,
+              summation_bound: bool = False) -> None:
+        """``sql`` on ``eng`` against ``oracle``: rows as multisets and, under
+        ORDER BY, its key columns in order; integers and strings exact,
+        floats within ``rtol = atol = 1e-12``.  With ``summation_bound``
+        (the scaled tables), a float SUM/AVG column that misses that may
+        be held to ``n * 2**-52 * sum(|x|)`` instead (``torch_corpus.
+        summation_bound``), and each such column is printed."""
+        C = _corpus()
+        what = f"{what}: {sql}"
+        try:
+            res = eng.query(sql)
+        except Exception as e:  # recorded: the phase fails at its end
+            self.queries += 1
+            self.differ(what, f"{type(e).__name__}: {e}")
+            return
+        if not self.label(res, allowed, what):
+            return
+        bounds = ((lambda col: C.summation_bound(oracle, sql, col))
+                  if summation_bound else None)
+        exp = oracle.query(sql)
+        try:
+            held = C.assert_same_result(res, exp, sql,
+                                        f"part {self.name}, {what}",
+                                        bounds=bounds)
+        except AssertionError as e:
+            self.differ(what, str(e), **_float_detail(res, exp, oracle, sql))
+            return
+        for col, (gap, bound) in held.items():
+            self.held.append({"query": what, "column": col, "gap": gap,
+                              "bound": bound})
+
+    def say(self, **kv) -> None:
+        now = _launches()
+        self.launched = {k: now[k] - self.l0[k] for k in now}
+        _say("engine_corpus", part=self.name, queries=self.queries,
+             equal=self.queries - len(self.differences),
+             backends=self.backends, launches=self.launched,
+             seconds=time.perf_counter() - self.t0,
+             held_to_summation_bound=self.held,
+             differences=self.differences, **kv)
+
+
+def _float_detail(res, exp, oracle, sql: str) -> dict:
+    """For a result whose first differing column is a float: the column,
+    its largest gap to the oracle and its summation bound
+    ``n * 2**-52 * sum(|x|)`` (None where it has none), so that a gap of
+    summation order reads apart from a wrong value."""
+    C = _corpus()
+    g, e = res.to_pandas(), exp.to_pandas()
+    if list(g.columns) != list(e.columns) or len(g) != len(e):
+        return {}
+    g, e = C.canon(g), C.canon(e)
+    col, _ = C.compare_frames(g, e)
+    if col is None or "f" not in (g[col].dtype.kind, e[col].dtype.kind):
+        return {}
+    return {"column": col, "gap": C.float_gap(g[col].to_numpy(),
+                                              e[col].to_numpy()),
+            "bound": C.summation_bound(oracle, sql, col)}
+
+
+def _corpus_single(dev) -> list:
+    """Parts a and b on ``TorchOlapEngine(device=dev)``: the smoke's 17
+    queries, then the parity corpus with the UNIONs, the kernels' shapes and
+    the edge values at ``scale=1`` and ``CORPUS_SCALE_A`` (the last two
+    again with ``max_groups=16``, so every GROUP BY outgrows its first
+    guess and reruns), then the 60 fuzz seeds at ``scale=1`` and
+    ``CORPUS_SCALE_B``.  Returns both parts."""
+    from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+
+    C = _corpus()
+    one = (f"torch-{torch.device(dev).type}",)
+    a = _Part("a")
+    eng = TorchOlapEngine(EngineConfig(enable_cache=False), device=dev)
+    C.smoke_tables(eng)
+    oracle = _oracle(eng)
+    for i, sql in enumerate(C.SMOKE_QUERIES):
+        a.check(eng, oracle, sql, f"smoke query {i}", one)
+    for scale in (1, C.CORPUS_SCALE_A):
+        eng = TorchOlapEngine(EngineConfig(enable_cache=False), device=dev)
+        C.populate(eng, np.random.default_rng(123), scale)
+        C.edge_tables(eng, np.random.default_rng(5), scale)
+        oracle = _oracle(eng)
+        for i, sql in enumerate(C.CARD_QUERIES):
+            a.check(eng, oracle, sql, f"scale {scale} query {i}", one,
+                    summation_bound=scale > 1)
+    regrow = TorchOlapEngine(EngineConfig(enable_cache=False, max_groups=16),
+                             device=dev)
+    regrow.catalog = eng.catalog
+    for i, sql in enumerate(C.KERNEL_QUERIES + C.EDGE_QUERIES):
+        a.check(regrow, oracle, sql,
+                f"scale {C.CORPUS_SCALE_A} max_groups 16 query {i}", one,
+                summation_bound=True)
+    del eng, regrow, oracle
+    a.say(scales=[1, C.CORPUS_SCALE_A],
+          sales_rows=[5000, 5000 * C.CORPUS_SCALE_A])
+
+    b = _Part("b")
+    rows = {1: [], C.CORPUS_SCALE_B: []}
+    for scale in rows:
+        for seed in range(C.N_QUERIES):
+            t1, t2, sql = C.fuzz_case(seed, scale)
+            rows[scale].append(len(t1["a"]))
+            eng = TorchOlapEngine(EngineConfig(min_shape_bucket=256,
+                                               enable_cache=False), device=dev)
+            eng.register("t1", t1)
+            eng.register("t2", t2)
+            b.check(eng, _oracle(eng), sql, f"scale {scale} seed {seed}",
+                    one, summation_bound=scale > 1)
+    b.say(scales=list(rows),
+          t1_rows={s: [min(r), max(r)] for s, r in rows.items()})
+    return [a, b]
+
+
+def _corpus_paths(dev, d: str) -> list:
+    """Parts c-e: the path fuzzer's mesh seeds on eight logical shards of
+    the card, its streamed seeds and the star-join seeds from Parquet files
+    in ``d``, left uncached."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+
+    C = _corpus()
+    one = f"torch-{torch.device(dev).type}"
+    n_path = C.N_PATH_SEEDS
+    c = _Part("c")
+    for seed in range(n_path):
+        t1, t2, sql = C.mesh_case(seed)
+        eng = TorchOlapEngine(EngineConfig(**C.MESH_CONFIG), device=dev,
+                              mesh_devices=[str(dev)] * 8)
+        eng.register("t1", t1)
+        eng.register("t2", t2)
+        if C.mixed(eng.plan_query(sql)):
+            c.differ(f"mesh seed {seed}: {sql}",
+                     "a STRING side against a number in the lowered plan")
+        c.check(eng, _oracle(eng), sql, f"mesh seed {seed}", C.MESH + (one,))
+
+    dd = _Part("d")
+    for seed in range(n_path):
+        t1, t2, sql = C.streamed_case(seed)
+        path = os.path.join(d, f"t1_{seed}.parquet")
+        pq.write_table(pa.table(t1), path)
+        eng = TorchOlapEngine(EngineConfig(**C.streamed_config(seed)),
+                              device=dev)
+        eng.load_table("t1", path)
+        eng.register("t2", t2)
+        dd.check(eng, _oracle(eng), sql, f"streamed seed {seed}",
+                 C.STREAMED + (one,))
+    # tier-1's share: a third of the seeds on the path they fuzz
+    for part, labels in ((c, C.MESH), (dd, C.STREAMED)):
+        hits = sum(part.backends.get(x, 0) for x in labels)
+        if 3 * hits < n_path:
+            part.differ("share", f"{hits} of {n_path} seeds on {labels}")
+    c.say(shards=8)
+    dd.say()
+
+    e = _Part("e")
+    for seed in range(C.N_STAR_SEEDS):
+        sd = os.path.join(d, f"star_{seed}")
+        os.makedirs(sd)
+        fact_path, dim, dim_path = C.star_tables(seed, sd)
+        eng = TorchOlapEngine(EngineConfig(**C.star_config(seed)),
+                              device=dev)
+        eng.load_table("t1", fact_path)
+        if dim_path is None:
+            eng.register("t2", dim)
+        else:
+            eng.load_table("t2", dim_path)
+        oracle = _oracle(eng)
+        for sql, _keys in C.star_queries(seed):
+            e.check(eng, oracle, sql, f"star seed {seed}",
+                    ("torch-streaming",))
+        if C.star_small(seed) and \
+                eng._get_device_executor()._streaming.last_hash_parts <= 1:
+            e.differ(f"star seed {seed}: {C.STAR_FACT_ONLY}",
+                     "the 16-slot state kept one hash part")
+    e.say()
+    return [c, dd, e]
+
+
+def _corpus_matrices(dev, d: str) -> list:
+    """Part f: the typed-literal and temporal predicate matrices on the
+    card, the eight logical shards and streamed from Parquet, each count
+    and sum equal to numpy's."""
+    import pyarrow.parquet as pq
+
+    from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+
+    C = _corpus()
+    f = _Part("f")
+    for name, table, preds, cols in (
+            ("typed", C.typed_table(), C.TYPED_PREDICATES, C.columns),
+            ("temporal", C.temporal_table(), C.TEMPORAL_PREDICATES,
+             C.temporal_columns)):
+        path = os.path.join(d, f"{name}.parquet")
+        pq.write_table(table, path)
+        one = TorchOlapEngine(EngineConfig(), device=dev)
+        one.register("t", table)
+        mesh = TorchOlapEngine(EngineConfig(mesh_shape=(8,)), device=dev,
+                               mesh_devices=[str(dev)] * 8)
+        mesh.register("t", table)
+        streamed = TorchOlapEngine(EngineConfig(
+            table_cache_threshold_rows=1000, batch_size=512), device=dev)
+        streamed.load_table("t", path)
+        v = table.column("v").to_numpy()
+        np_cols = cols(table)
+        for key, (pred, mask_of) in sorted(preds.items()):
+            mask = mask_of(np_cols)
+            want = [int(mask.sum()), int(v[mask].sum())]
+            sql = C.predicate_sql(pred)
+            for label, eng in ((f"torch-{torch.device(dev).type}", one),
+                               ("torch-distributed", mesh),
+                               ("torch-streaming", streamed)):
+                what = f"{name} {key} on {label}: {sql}"
+                res = eng.query(sql)
+                if not f.label(res, (label,), what):
+                    continue
+                got = res.to_pydict()
+                got = [int(got["n"][0]), int(got["s"][0])]
+                if got != want:
+                    f.differ(what, f"(n, s) = {got}, numpy {want}")
+    f.say()
+    return [f]
+
+
+def _run_corpus(dev, card: str) -> dict:
+    """Every query corpus and fuzzer of the port's CPU tests, on the card,
+    against the port's NumPy oracle or numpy (``tests/torch_corpus.py``).
+    Fails, after every part, if any part recorded a difference or a kernel of B1-B4 did not launch
+    in parts a and b; returns their launches."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    parts = _corpus_single(dev)
+    launches = {k: parts[0].launched[k] + parts[1].launched[k]
+                for k in parts[0].launched}
+    d = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    try:
+        parts += _corpus_paths(dev, d)
+        parts += _corpus_matrices(dev, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    differences = [dict(part=p.name, **x) for p in parts
+                   for x in p.differences]
+    queries = sum(p.queries for p in parts)
+    _say("engine_corpus", card=card, parts="abcdef",
+         queries=queries, equal=queries - len(differences),
+         launches_a_b=launches, seconds=time.perf_counter() - t0)
+    if differences:
+        raise AssertionError(f"engine_corpus: {len(differences)} "
+                             f"difference(s): {differences[:20]}")
+    _need_launch(launches, ("filter_agg", "seg_agg", "stream_compact",
+                            "expand_fill"), "engine_corpus parts a and b")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2378,8 +2636,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on the "
                                  "GPU (no arguments: every phase).")
-    ap.add_argument("--only", choices=["multiprocess"],
-                    help="run this phase alone (after the build)")
+    ap.add_argument("--only", choices=["multiprocess", "corpus"],
+                    help="run this phase alone (after the build): "
+                    "multiprocess, or corpus (engine_corpus)")
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("rank_dir", nargs="?", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -2408,6 +2667,9 @@ def main() -> int:
                 name == "zipf", bdt.device_hist(dev, DIST_SHARDS))["capacity"]
             for name in ("uniform", "zipf")}
         _run_multiprocess(card, capacities)
+    if args.only == "corpus":
+        _run_corpus(dev, card)
+    if args.only:
         _assert_standalone()
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": _device_info()}), flush=True)
@@ -2419,7 +2681,7 @@ def main() -> int:
     join_launches, join_kern = _run_joins(dev, card)
     kern.update(join_kern)
     launches.update(join_launches)
-    _run_oracle(dev)
+    _run_corpus(dev, card)
     dist_launches, lk, capacities = _run_dist_step(dev, card)
     launches.update(dist_launches)
     kern.update(_check_dist_kernels(dev, lk))

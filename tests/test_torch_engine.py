@@ -8,7 +8,9 @@ JAX package's engines.  Results are compared as row multisets: integers exactly,
 within ``rtol=1e-12`` (aggregates are summed in another order) and
 ``atol=1e-12`` (for sums near zero).  Join queries also check that the port
 takes the route the JAX engine takes (streaming join, sorted-space join
-aggregates), by the counters each engine bumps.
+aggregates), by the counters each engine bumps.  The corpus and the
+fuzzer come from ``tests/torch_corpus.py``, which the GPU runs through
+``tests/test_torch_card.py`` and ``chip_smoke.py``'s ``engine_corpus``.
 """
 
 import subprocess
@@ -21,8 +23,7 @@ import torch
 
 import test_groupjoin
 from conftest import make_engine
-from test_device_parity import QUERIES, _populate
-from test_fuzz_parity import N_QUERIES, _gen_query, _gen_tables
+from torch_corpus import N_QUERIES, SLICE_QUERIES, fuzz_case, populate
 
 from gpu_olap_tpu.interop import columnar as jcol
 from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS as JAX_METRICS
@@ -30,22 +31,6 @@ from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
 from gpu_olap_tpu_torch.utils.metrics import GLOBAL_METRICS
 from gpu_olap_tpu_torch.executor import device as tdev
 from gpu_olap_tpu_torch.ops.kernels import join_stream as tjs
-
-# every query of the parity corpus, joins included, and UNION ALL (string
-# columns over different dictionaries, int with float, nulls, a UNION
-# under an aggregate)
-SLICE_QUERIES = list(QUERIES) + [
-    "SELECT region, amount FROM sales WHERE amount > 240 UNION ALL "
-    "SELECT region, CAST(customer_id AS DOUBLE) FROM customers "
-    "WHERE customer_id < 20",
-    "SELECT k, v FROM lt UNION ALL SELECT k, w FROM rt WHERE w > 500",
-    "SELECT region, v FROM nullt UNION ALL SELECT region, amount FROM sales "
-    "WHERE quantity = 7",
-    "SELECT k, COUNT(*) AS n, SUM(v) AS s FROM (SELECT k, v FROM lt "
-    "UNION ALL SELECT k, w AS v FROM rt) u GROUP BY k",
-    "SELECT a FROM seq WHERE a < 5 UNION SELECT k FROM lt WHERE k < 8",
-]
-
 
 def _port(**kwargs):
     return TorchOlapEngine(EngineConfig(**kwargs), device="cpu")
@@ -95,7 +80,7 @@ def _bumped(counter, fn):
 @pytest.fixture(scope="module")
 def engines():
     port = _port()
-    _populate(port, np.random.default_rng(123))
+    populate(port, np.random.default_rng(123))
     jax_dev = make_engine("device")
     cpu = make_engine("cpu")
     mirror_tables(port, jax_dev, cpu)
@@ -116,9 +101,7 @@ def test_port_matches_jax_and_oracle(engines, sql):
 def test_fuzz_port_matches_oracle(seed):
     """The generated queries of ``test_fuzz_parity.py``, the joins (whose
     aggregates draw on ``_AGGS_JOIN``) included."""
-    rng = np.random.default_rng(1000 + seed)
-    t1, t2 = _gen_tables(rng)
-    sql = _gen_query(rng)
+    t1, t2, sql = fuzz_case(seed)
     port = _port(min_shape_bucket=256)
     port.register("t1", t1)
     port.register("t2", t2)
@@ -127,32 +110,6 @@ def test_fuzz_port_matches_oracle(seed):
     got = port.query(sql)
     assert got.metrics["backend"] == "torch-cpu", sql
     _assert_same_rows(_canon(got), _canon(cpu.query(sql)), sql)
-
-
-@pytest.mark.cuda
-def test_cuda_port_matches_oracle_on_corpus():
-    """The parity corpus and the fuzz queries on the GPU: every slice query
-    must run on the card (``torch-cuda``) and equal the oracle."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    port = TorchOlapEngine(EngineConfig(), device="cuda")
-    _populate(port, np.random.default_rng(123))
-    cpu = make_engine("cpu")
-    mirror_tables(port, cpu)
-    for sql in SLICE_QUERIES:
-        got = port.query(sql)
-        assert got.metrics["backend"] == "torch-cuda", sql
-        _assert_same_rows(_canon(got), _canon(cpu.query(sql)), sql)
-    for seed in range(N_QUERIES):
-        rng = np.random.default_rng(1000 + seed)
-        t1, t2 = _gen_tables(rng)
-        sql = _gen_query(rng)
-        port.register("t1", t1)
-        port.register("t2", t2)
-        mirror_tables(port, cpu)
-        got = port.query(sql)
-        assert got.metrics["backend"] == "torch-cuda", sql
-        _assert_same_rows(_canon(got), _canon(cpu.query(sql)), sql)
 
 
 def test_ordered_query_preserves_order(engines):

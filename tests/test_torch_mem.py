@@ -3,8 +3,9 @@
 Twins of ``tests/test_mem.py``: each runs the same calls on
 ``gpu_olap_tpu.mem`` and ``gpu_olap_tpu_torch.mem`` and checks both give
 the same buffers, counts and chunks.  The reduction twin runs a torch step
-through the port's ``stream_reduce``.  The ``cuda``-marked test holds the
-pinned-buffer feeder on its copy stream against the CPU feeder.
+through the port's ``stream_reduce``.  The pinned-buffer feeder on its
+copy stream is held against the CPU feeder in ``tests/test_torch_card.py``,
+which imports no JAX and so runs on a GPU machine without it.
 """
 
 import numpy as np
@@ -104,42 +105,3 @@ def test_stream_reduce_out_of_core_sum():
     got = stream_reduce(chunks(), tstep, torch.tensor(0, dtype=torch.int64),
                         num_buffers=3)
     assert int(got) == int(exp) == sum(100 * i for i in range(10))
-
-
-@pytest.mark.cuda
-def test_pinned_feeder_on_cuda_matches_cpu_feeder():
-    """Pinned staging buffers uploaded on the feeder's copy stream give the
-    CPU feeder's chunks, each buffer refilled only after the step that read
-    its upload finished."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    dev = torch.device("cuda", 0)
-    arena = BufferArena(pinned=True)
-    rng = np.random.default_rng(3)
-    host = [rng.integers(-1000, 1000, 1 << 20).astype(np.int32)
-            for _ in range(12)]
-    staged = []
-
-    def staged_chunks():
-        for h in host:
-            buf = arena.acquire(h.size, np.int32)
-            buf[:h.size] = h
-            staged.append(buf)
-            yield (buf[:h.size], {"n": h.size})
-
-    sums, pending = [], []
-    for dev_chunk in DeviceFeeder(num_buffers=3, device=dev).feed(
-            staged_chunks()):
-        arr, meta = dev_chunk
-        assert arr.device == dev and meta["n"] == arr.numel()
-        sums.append(arr.to(torch.int64).sum())
-        done = torch.cuda.Event()
-        done.record()
-        pending.append((staged.pop(0), done))
-        if len(pending) > 3:
-            buf, ev = pending.pop(0)
-            ev.synchronize()
-            arena.release(buf)
-    cpu = [int(c[0].to(torch.int64).sum()) for c in
-           DeviceFeeder(num_buffers=3).feed((h, {"n": h.size}) for h in host)]
-    assert [int(s) for s in sums] == cpu == [int(h.sum()) for h in host]

@@ -1,7 +1,8 @@
 """Generated queries on the port's mesh and streamed paths, against the JAX
 package's NumPy oracle.
 
-``tests/test_fuzz_parity.py``'s generator (``_gen_tables``, ``_gen_query``)
+``tests/torch_corpus.py``'s copy of ``tests/test_fuzz_parity.py``'s
+generator (``gen_tables``, ``gen_query``, ``mesh_case``, ``streamed_case``)
 draws the tables and the SQL, with typed-literal predicates added to its
 pool: numbers compared with string literals and a string column compared
 with a number.  The JAX oracle compares such literals by their digits, so
@@ -27,28 +28,21 @@ Every lowered plan must keep the planner's rule: no comparison, IN list or
 join key has a STRING side facing a non-STRING side.
 """
 
-import dataclasses
-import re
-
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
 import torch
 
-import test_fuzz_parity as fuzz
+import torch_corpus as corpus
 from gpu_olap_tpu import EngineConfig as JaxConfig
 from gpu_olap_tpu import OlapEngine
 from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
-from gpu_olap_tpu_torch.interop.columnar import DType
-from gpu_olap_tpu_torch.plan import physical as P
 from test_torch_engine import mirror_tables
+from torch_corpus import (MESH, MESH_CONFIG, STREAMED, TYPED_PREDS, as_numbers,
+                          draw, mixed)
 
-N_SEEDS = 40
-TYPED_PREDS = ["t.a > '10'", "t.b = '3'", "t.b IN ('1', '2')",
-               "t.c > '50.5'", "t.a BETWEEN '-10' AND '25'", "t.s <> 3"]
-MESH = ("torch-distributed",)
-STREAMED = ("torch-streaming", "torch-streaming-partitioned")
+N_SEEDS = corpus.N_PATH_SEEDS
 # seed -> backend, per path (filled by the seeds' tests, completed by the
 # share tests when run alone)
 _BACKENDS = {"mesh": {}, "streamed": {}}
@@ -62,62 +56,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def _draw(rng, accept):
-    """``_gen_query`` over the pool with the typed predicates, redrawn (up
-    to 30 times) until ``accept(sql)``."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(fuzz, "_PREDS", fuzz._PREDS + TYPED_PREDS)
-        for _ in range(30):
-            sql = fuzz._gen_query(rng)
-            if accept(sql):
-                break
-    return sql
-
-
-def _distributable(sql):
-    return "t.s" not in sql and ("GROUP BY" in sql or "LIMIT" in sql)
-
-
-def _streamable(sql):
-    return "t.s" not in sql and "DISTINCT" not in sql and \
-        not sql.startswith("SELECT t.a, t.b, t.c")
-
-
-def _as_numbers(sql):
-    """The query with each numeric string literal written as a number."""
-    return re.sub(r"'([+-]?[0-9]+(?:\.[0-9]+)?)'", r"\1", sql)
-
-
-def _mixed(plan):
-    """Every comparison, IN list and join-key pair of a lowered plan that
-    sets a STRING side against a non-STRING side."""
-    found = []
-
-    def is_str(e):
-        return e.dtype is DType.STRING
-
-    def walk(x):
-        if isinstance(x, P.PhysBinary) and x.op in P._COMPARISONS:
-            if is_str(x.left) != is_str(x.right):
-                found.append(x)
-        elif isinstance(x, P.PhysInList):
-            if any(v is not None and isinstance(v, str) != is_str(x.operand)
-                   for v in x.values):
-                found.append(x)
-        elif isinstance(x, P.TpuHashJoin):
-            found.extend(pair for pair in zip(x.left_keys, x.right_keys)
-                         if is_str(pair[0]) != is_str(pair[1]))
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            for f in dataclasses.fields(x):
-                walk(getattr(x, f.name))
-        elif isinstance(x, (tuple, list)):
-            for y in x:
-                walk(y)
-
-    walk(plan)
-    return found
 
 
 def _same_rows(got, exp, what):
@@ -138,20 +76,16 @@ def _same_rows(got, exp, what):
 
 
 def _check(port, oracle, sql, what):
-    assert not _mixed(port.plan_query(sql)), what
+    assert not mixed(port.plan_query(sql)), what
     res = port.query(sql)
-    _same_rows(res, oracle.query(_as_numbers(sql)), what)
+    _same_rows(res, oracle.query(as_numbers(sql)), what)
     return res.metrics["backend"]
 
 
 def _run_mesh(seed):
-    rng = np.random.default_rng(20_000 + seed)
-    t1, t2 = fuzz._gen_tables(rng)
-    sql = _draw(rng, _distributable if seed % 3 != 1 else (lambda s: True))
-    # 4096 group slots hold every query's groups (at most 10 x 4) and keep
-    # the shards' padded merge sorts small on the CPU
-    port = TorchOlapEngine(EngineConfig(mesh_shape=(8,), max_groups=4096),
-                           device="cpu", mesh_devices=["cpu"] * 8)
+    t1, t2, sql = corpus.mesh_case(seed)
+    port = TorchOlapEngine(EngineConfig(**MESH_CONFIG), device="cpu",
+                           mesh_devices=["cpu"] * 8)
     port.register("t1", t1)
     port.register("t2", t2)
     oracle = OlapEngine(JaxConfig(backend="cpu"))
@@ -161,18 +95,11 @@ def _run_mesh(seed):
 
 
 def _run_streamed(seed, tmp_path):
-    rng = np.random.default_rng(30_000 + seed)
-    t1, t2 = fuzz._gen_tables(rng)
-    t1["c"] = np.where(np.isnan(t1["c"]), -7.25, t1["c"])
-    sql = _draw(rng, _streamable if seed % 3 != 1 else (lambda s: True))
+    t1, t2, sql = corpus.streamed_case(seed)
     path = str(tmp_path / f"t1_{seed}.parquet")
     pq.write_table(pa.table(t1), path)
-    # 4096 group slots, as for the mesh; 16 make the state overflow and grow
-    cfg = dict(table_cache_threshold_rows=100, batch_size=256,
-               max_groups=4096)
-    if seed % 3 == 0:
-        cfg.update(max_groups=16, stream_state_partition_groups=8)
-    port = TorchOlapEngine(EngineConfig(**cfg), device="cpu")
+    port = TorchOlapEngine(EngineConfig(**corpus.streamed_config(seed)),
+                           device="cpu")
     oracle = OlapEngine(JaxConfig(backend="cpu"))
     for eng in (port, oracle):
         eng.load_table("t1", path)
@@ -212,7 +139,7 @@ def test_typed_predicates_are_drawn():
     for base in (20_000, 30_000):
         for seed in range(N_SEEDS):
             rng = np.random.default_rng(base + seed)
-            fuzz._gen_tables(rng)
-            drawn.append(_draw(rng, lambda s: True))
+            corpus.gen_tables(rng)
+            drawn.append(draw(rng, lambda s: True))
     for pred in TYPED_PREDS:
         assert any(pred in sql for sql in drawn), pred

@@ -1,9 +1,10 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
-(a) No ``.py`` file of ``gpu_olap_tpu_torch``, no bench or chip script and
-    not ``examples/torch_usage.py`` imports ``jax``, ``gpu_olap_tpu`` or a
-    submodule of either (names match exactly, so ``gpu_olap_tpu_torch``
-    itself is allowed).
+(a) No ``.py`` file of ``gpu_olap_tpu_torch``, no bench or chip script,
+    not ``examples/torch_usage.py`` and neither ``tests/torch_corpus.py``
+    nor ``tests/test_torch_card.py`` (which the GPU runs) imports
+    ``jax``, ``gpu_olap_tpu`` or a submodule of either (names match
+    exactly, so ``gpu_olap_tpu_torch`` itself is allowed).
 (b) With ``jax`` and ``gpu_olap_tpu`` blocked from import, the port answers
     a filtered aggregate, a GROUP BY, a join and a UNION ALL on the CPU, as
     numpy does, its entry points and CLI run, the bench scripts run a
@@ -23,8 +24,8 @@ import numpy as np
 import pytest
 
 from conftest import make_engine
-from test_device_parity import _populate
-from test_torch_engine import SLICE_QUERIES, mirror_tables
+from test_torch_engine import mirror_tables
+from torch_corpus import SLICE_QUERIES, populate
 
 import gpu_olap_tpu_torch
 from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
@@ -42,7 +43,8 @@ def _sources():
                 for f in files if f.endswith(".py")]
     return sorted(out) + ["bench_torch.py", "bench_dist_torch.py",
                           "chip_smoke.py", "chip_trace.py",
-                          "chip_kernel_ab.py", "examples/torch_usage.py"]
+                          "chip_kernel_ab.py", "examples/torch_usage.py",
+                          "tests/torch_corpus.py", "tests/test_torch_card.py"]
 
 
 def _imported_modules(path):
@@ -234,7 +236,7 @@ def test_port_runs_with_the_jax_package_blocked(tmp_path):
 @pytest.fixture(scope="module")
 def explain_engines():
     port = TorchOlapEngine(EngineConfig(), device="cpu")
-    _populate(port, np.random.default_rng(123))
+    populate(port, np.random.default_rng(123))
     ref = make_engine("auto")
     mirror_tables(port, ref)
     return port, ref

@@ -19,22 +19,15 @@ join never takes).
 """
 
 import numpy as np
-import pyarrow as pa
-import pyarrow.parquet as pq
 import pytest
 import torch
 
+import torch_corpus as corpus
 from gpu_olap_tpu import EngineConfig as JaxConfig
 from gpu_olap_tpu import OlapEngine
 from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
 
-N_SEEDS = 40
-WORDS = np.array(["p", "q", "r", "s"], dtype=object)
-KEYS = ["t.b", "t2.g", "t2.w", "t.a % 5"]
-AGGS = ["COUNT(*)", "SUM(t.a)", "SUM(t.c)", "SUM(t2.w)", "MIN(t.a)",
-        "MAX(t.c)", "MIN(t2.x)", "MAX(t2.w)", "AVG(t.c)", "AVG(t2.w)",
-        "MIN(t2.g)", "MAX(t2.g)"]
-PREDICATES = [None, "t2.g = 'p'", "t.c > t2.x", "t2.g <> 'q' AND t.a > 20"]
+N_SEEDS = corpus.N_STAR_SEEDS
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -46,52 +39,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def _tables(seed, tmp_path):
-    rng = np.random.default_rng(seed)
-    n = int(rng.integers(3000, 9001))
-    m = int(rng.integers(20, 301))
-    fact = pa.table({
-        "a": rng.integers(0, 100, n).astype(np.int64),
-        "b": rng.integers(0, m + m // 4, n).astype(np.int64),
-        "c": rng.normal(50.0, 10.0, n),
-    })
-    dim = pa.table({
-        # duplicate keys widen the join; keys past m find no fact row
-        "b": rng.integers(0, m + m // 8, m).astype(np.int64),
-        "w": rng.integers(-50, 1000, m).astype(np.int64),
-        "x": rng.normal(50.0, 10.0, m),
-        "g": WORDS[rng.integers(0, len(WORDS), m)],
-    })
-    fact_path = str(tmp_path / "t1.parquet")
-    pq.write_table(fact, fact_path)
-    dim_path = None
-    if seed % 2:
-        dim_path = str(tmp_path / "t2.parquet")
-        pq.write_table(dim, dim_path)
-    return fact_path, dim, dim_path
-
-
-def _query(rng, first):
-    keys = list(rng.choice(KEYS, size=int(rng.integers(0, 3)), replace=False))
-    aggs = list(rng.choice(AGGS, size=int(rng.integers(1, 4)), replace=False))
-    if first and "t2.g" not in keys and not any("t2.g" in a for a in aggs):
-        if rng.random() < 0.5:
-            keys.append("t2.g")
-        else:
-            aggs.append(str(rng.choice(["MIN(t2.g)", "MAX(t2.g)"])))
-    pred = PREDICATES[int(rng.integers(0, len(PREDICATES)))]
-    names = [f"k{i}" for i in range(len(keys))]
-    select = [f"{k} AS {nm}" for k, nm in zip(keys, names)] + \
-        [f"{a} AS m{i}" for i, a in enumerate(aggs)]
-    sql = (f"SELECT {', '.join(select)} FROM t1 t JOIN t2 "
-           "ON t.b = t2.b")
-    if pred:
-        sql += f" WHERE {pred}"
-    if keys:
-        sql += f" GROUP BY {', '.join(keys)}"
-    return sql, names
 
 
 def _rows(result, order):
@@ -115,16 +62,10 @@ def _same(got, exp, what):
 
 @pytest.mark.parametrize("seed", range(N_SEEDS))
 def test_streamed_star_join_matches_oracle(seed, tmp_path):
-    fact_path, dim, dim_path = _tables(seed, tmp_path)
-    small = seed % 3 == 0
-    # 4096 group slots hold every seed's groups (the route is the one the
-    # default state takes, and the merge sorts stay small for the CPU); a
-    # query drawn twice must run twice, not come from the result cache
-    cfg = dict(table_cache_threshold_rows=1000, batch_size=2048,
-               max_groups=4096, enable_cache=False)
-    if small:
-        cfg.update(max_groups=16, stream_state_partition_groups=8)
-    port = TorchOlapEngine(EngineConfig(**cfg), device="cpu")
+    fact_path, dim, dim_path = corpus.star_tables(seed, tmp_path)
+    small = corpus.star_small(seed)
+    port = TorchOlapEngine(EngineConfig(**corpus.star_config(seed)),
+                           device="cpu")
     oracle = OlapEngine(JaxConfig(backend="cpu"))
     for eng in (port, oracle):
         eng.load_table("t1", fact_path)
@@ -135,11 +76,7 @@ def test_streamed_star_join_matches_oracle(seed, tmp_path):
     assert not port.catalog.is_cached("t1")
     assert port.catalog.is_cached("t2")
 
-    rng = np.random.default_rng(10_000 + seed)
-    queries = [_query(rng, first=i == 0) for i in range(3)]
-    if small:
-        queries.append(("SELECT t.b AS k0, COUNT(*) AS m0, SUM(t.c) AS m1, "
-                        "MIN(t.a) AS m2 FROM t1 t GROUP BY t.b", ["k0"]))
+    queries = corpus.star_queries(seed)
     for sql, order in queries:
         res = port.query(sql)
         assert res.metrics["backend"] == "torch-streaming", (sql, res.metrics)

@@ -11,7 +11,9 @@ and comparisons with a string column raise ``PlanError``.
 
 The JAX package compares the two by other means, and both are wrong: its
 device engine raises ``ValueError`` and its oracle compares the digits of
-the integers with the string (ROADMAP.md C).
+the integers with the string (ROADMAP.md C).  The table and the predicate
+matrix come from ``tests/torch_corpus.py`` (``temporal_table``,
+``TEMPORAL_PREDICATES``).
 """
 
 import numpy as np
@@ -19,36 +21,21 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
 
+import torch_corpus as corpus
 from gpu_olap_tpu import EngineConfig as JaxConfig
 from gpu_olap_tpu import OlapEngine
 from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
 from gpu_olap_tpu_torch.plan.physical import PlanError
 from test_torch_engine import mirror_tables
 
-N = 2000
-DAY_MS = 86_400_000
+N = corpus.TEMPORAL_ROWS
+PREDICATES = corpus.TEMPORAL_PREDICATES
+_np = corpus.temporal_columns
 
 
 @pytest.fixture(scope="module")
 def table():
-    """``ts`` over 2020-2022, a third of it at midnight, and six rows on
-    2021-06-01 (three at midnight), so that every ``=`` meets rows; ``d``
-    the same instants as days; ``v`` the row number."""
-    rng = np.random.default_rng(11)
-    lo = np.datetime64("2020-01-01", "D").astype(np.int64)
-    hi = np.datetime64("2023-01-01", "D").astype(np.int64)
-    days = rng.integers(lo, hi, N)
-    days[:6] = np.datetime64("2021-06-01", "D").astype(np.int64)
-    ms = days * DAY_MS + np.where(rng.random(N) < 0.3, 0,
-                                  rng.integers(0, DAY_MS, N))
-    ms[:3] = days[:3] * DAY_MS
-    return pa.table({
-        "ts": pa.array(ms.astype("datetime64[ms]")),
-        "d": pa.array(days.astype(np.int32), pa.date32()),
-        "v": np.arange(N, dtype=np.int64),
-        "s": np.array([str(x) for x in days.astype("datetime64[D]")],
-                      dtype=object),
-    })
+    return corpus.temporal_table()
 
 
 @pytest.fixture(scope="module")
@@ -68,47 +55,6 @@ def engines(table, tmp_path_factory):
             "torch-streaming": streamed}
 
 
-def _np(table):
-    ts = table.column("ts").to_numpy().astype("datetime64[ms]")
-    d = table.column("d").to_numpy().astype("datetime64[D]")
-    return {"ts": ts, "d": d}
-
-
-D = np.datetime64
-# (predicate, numpy mask over {"ts": ..., "d": ...})
-PREDICATES = {
-    "ts_eq": ("ts = '2021-06-01'", lambda c: c["ts"] == D("2021-06-01")),
-    "ts_ne": ("ts != '2021-06-01'", lambda c: c["ts"] != D("2021-06-01")),
-    "ts_lt": ("ts < '2021-06-01 12:30'",
-              lambda c: c["ts"] < D("2021-06-01T12:30")),
-    "ts_le": ("ts <= '2021-06-01'", lambda c: c["ts"] <= D("2021-06-01")),
-    "ts_gt": ("ts > '2021-06-01'", lambda c: c["ts"] > D("2021-06-01")),
-    "ts_ge": ("'2021-06-01T00:00:00.250' <= ts",
-              lambda c: c["ts"] >= D("2021-06-01T00:00:00.250")),
-    "ts_between": ("ts BETWEEN '2021-03' AND '2021-06-15'",
-                   lambda c: (c["ts"] >= D("2021-03"))
-                   & (c["ts"] <= D("2021-06-15"))),
-    "ts_in": ("ts IN ('2021-06-01', '2020-02-29', '2022-12-31')",
-              lambda c: np.isin(c["ts"], [D("2021-06-01", "ms"),
-                                          D("2020-02-29", "ms"),
-                                          D("2022-12-31", "ms")])),
-    "d_eq": ("d = '2021-06-01'", lambda c: c["d"] == D("2021-06-01")),
-    "d_ne": ("d <> '2021-06-01'", lambda c: c["d"] != D("2021-06-01")),
-    "d_lt": ("d < '2021-06-01'", lambda c: c["d"] < D("2021-06-01")),
-    "d_le": ("d <= '2021-06-01'", lambda c: c["d"] <= D("2021-06-01")),
-    "d_gt": ("d > '2021'", lambda c: c["d"] > D("2021")),
-    "d_ge": ("d >= '2021-06-01'", lambda c: c["d"] >= D("2021-06-01")),
-    "d_between": ("d NOT BETWEEN '2020-06-01' AND '2022-06-01'",
-                  lambda c: ~((c["d"] >= D("2020-06-01"))
-                              & (c["d"] <= D("2022-06-01")))),
-    "d_in": ("d IN ('2021-06-01', '2021-06-02')",
-             lambda c: np.isin(c["d"], [D("2021-06-01"), D("2021-06-02")])),
-    "range": ("ts >= '2021-01-01' AND ts < '2021-07-01' AND d > '2021-02'",
-              lambda c: (c["ts"] >= D("2021-01-01"))
-              & (c["ts"] < D("2021-07-01")) & (c["d"] > D("2021-02"))),
-}
-
-
 @pytest.mark.parametrize("backend", ["torch-cpu", "torch-distributed",
                                      "torch-streaming"])
 @pytest.mark.parametrize("name", sorted(PREDICATES))
@@ -116,7 +62,7 @@ def test_date_string_predicate_matches_numpy(table, engines, backend, name):
     pred, mask_of = PREDICATES[name]
     mask = mask_of(_np(table))
     assert 0 < mask.sum() < N
-    sql = f"SELECT COUNT(*) AS n, SUM(v) AS s FROM t WHERE {pred}"
+    sql = corpus.predicate_sql(pred)
     res = engines[backend].query(sql)
     assert res.metrics["backend"] == backend, res.metrics
     got = res.to_pydict()

@@ -14,7 +14,9 @@ on the 8-shard CPU mesh and streamed from an uncached Parquet file.
 
 The JAX package answers otherwise (ROADMAP.md C): its device engine raises
 ``ValueError`` and its oracle compares the decimal digits of the number
-with the string, character by character.
+with the string, character by character.  The table and the predicate
+matrix come from ``tests/torch_corpus.py`` (``typed_table``,
+``TYPED_PREDICATES``).
 """
 
 import numpy as np
@@ -22,37 +24,27 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
 
+import torch_corpus as corpus
 from gpu_olap_tpu import EngineConfig as JaxConfig
 from gpu_olap_tpu import OlapEngine
 from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
 from gpu_olap_tpu_torch.plan.physical import PlanError
 from test_torch_engine import mirror_tables
 
-N = 2000
+N = corpus.TYPED_ROWS
 BACKENDS = ["torch-cpu", "torch-distributed", "torch-streaming"]
+PREDICATES = corpus.TYPED_PREDICATES
+_cols = corpus.columns
 
 
 @pytest.fixture(scope="module")
 def table():
-    """Seed 0: ``b`` int64 in [0, 10), ``c`` float64 normal(0, 100), ``i``
-    int32 in [0, 100), then a string ``s`` of four letters, a BOOL ``f``
-    and the row number ``v``."""
-    rng = np.random.default_rng(0)
-    b = rng.integers(0, 10, N)
-    c = rng.normal(0, 100, N)
-    i = rng.integers(0, 100, N).astype(np.int32)
-    s = rng.choice(["w", "x", "y", "z"], N).astype(object)
-    return pa.table({"b": b, "c": c, "i": i, "s": s, "f": b % 2 == 0,
-                     "v": np.arange(N, dtype=np.int64)})
+    return corpus.typed_table()
 
 
 @pytest.fixture(scope="module")
 def dim():
-    """A small cached table to join with: integer keys ``k`` and their
-    text ``ks``."""
-    k = np.arange(0, 10, 2, dtype=np.int64)
-    return pa.table({"k": k, "ks": np.array([str(x) for x in k],
-                                             dtype=object)})
+    return corpus.typed_dim()
 
 
 @pytest.fixture(scope="module")
@@ -75,39 +67,6 @@ def engines(table, dim, tmp_path_factory):
     return out
 
 
-def _cols(table):
-    return {n: table.column(n).to_numpy(zero_copy_only=False)
-            for n in table.column_names}
-
-
-# (predicate, numpy mask over the table's columns)
-PREDICATES = {
-    "b_eq": ("b = '3'", lambda t: t["b"] == 3),
-    "b_ne": ("b <> '3'", lambda t: t["b"] != 3),
-    "b_lt": ("b < ' 4 '", lambda t: t["b"] < 4),
-    "b_le": ("'4' >= b", lambda t: t["b"] <= 4),
-    "b_gt": ("b > '5'", lambda t: t["b"] > 5),
-    "b_ge": ("b >= '+7'", lambda t: t["b"] >= 7),
-    "b_between": ("b BETWEEN '2' AND '4'",
-                  lambda t: (t["b"] >= 2) & (t["b"] <= 4)),
-    "b_not_between": ("b NOT BETWEEN '-1' AND '6'",
-                      lambda t: (t["b"] < -1) | (t["b"] > 6)),
-    "b_in": ("b IN ('1', '2')", lambda t: np.isin(t["b"], [1, 2])),
-    "b_not_in": ("b NOT IN ('1', 2, '03')",
-                 lambda t: ~np.isin(t["b"], [1, 2, 3])),
-    "c_gt": ("c > '50'", lambda t: t["c"] > 50),
-    "c_lt": ("c < '-12.5'", lambda t: t["c"] < -12.5),
-    "c_ge": ("'1e1' <= c", lambda t: t["c"] >= 10.0),
-    "c_between": ("c BETWEEN '-1e1' AND '25.25'",
-                  lambda t: (t["c"] >= -10.0) & (t["c"] <= 25.25)),
-    "i_eq": ("i = '42'", lambda t: t["i"] == 42),
-    "i_le": ("i <= '9'", lambda t: t["i"] <= 9),
-    "i_in": ("i IN ('42', '7')", lambda t: np.isin(t["i"], [42, 7])),
-    "mixed": ("b > '2' AND c >= '0' OR i = '42'",
-              lambda t: ((t["b"] > 2) & (t["c"] >= 0)) | (t["i"] == 42)),
-}
-
-
 @pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("name", sorted(PREDICATES))
 def test_numeric_column_against_string_literal(table, engines, backend, name):
@@ -115,7 +74,7 @@ def test_numeric_column_against_string_literal(table, engines, backend, name):
     cols = _cols(table)
     mask = mask_of(cols)
     assert 0 < mask.sum() < N
-    sql = f"SELECT COUNT(*) AS n, SUM(v) AS s FROM t WHERE {pred}"
+    sql = corpus.predicate_sql(pred)
     res = engines[backend].query(sql)
     assert res.metrics["backend"] == backend, res.metrics
     got = res.to_pydict()
