@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                      # about 14 minutes, one H100
+    python3 chip_smoke.py                      # about 14-17 minutes, one H100
     python3 chip_smoke.py --only multiprocess  # the build and phase 11 alone
     python3 chip_smoke.py --only corpus        # the build and phase 8 alone
+    python3 chip_smoke.py --only float_sums    # the build and phase 8a alone
 
 Phases, each printing one JSON line:
 
@@ -54,8 +55,8 @@ Phases, each printing one JSON line:
    its part names and equal to the port's NumPy oracle (rows as multisets,
    and under ORDER BY its keys in order; integers and strings exactly,
    floats within ``rtol = atol = 1e-12``; a float SUM/AVG over a scaled
-   table may instead be held to ``n * 2**-52 * sum(|x|)``, printed per
-   column) or to numpy, one line per part: (a) the 17 small single-table,
+   table may instead be held, row by row, to its own group's ``n_g *
+   2**-52 * sum(|x_g|)``, printed per column) or to numpy, one line per part: (a) the 17 small single-table,
    join and UNION ALL queries, then the parity corpus with the UNIONs, the
    kernels' shapes and the edge values at 1 and 256 times the fact tables
    (``sales`` 1.28M rows), the last two again with ``max_groups=16``, on
@@ -68,6 +69,18 @@ Phases, each printing one JSON line:
    filter_agg, seg_agg, stream_compact and expand_fill must launch in
    parts a and b; each line gives its queries, labels, launches and
    seconds;
+8a. engine_float_sums: float SUM/AVG per group at the groupby bench width
+   (100M rows, 4M int32 keys, uniform and then Zipf(1.5); float64 amounts
+   near 1e9 below key 2M, cents above, drawn on the card, seed 46): the
+   segmented sum (``ops/aggregate.py::_segmented_sum``) alone on the
+   key-sorted amounts under ``torch.cuda.set_sync_debug_mode("error")``,
+   bit-equal twice, its CUDA-event time beside ``torch.cumsum`` plus the
+   boundary gathers (the formula it replaced) and that formula's worst gap
+   over bound; then ``SELECT k, SUM(v), AVG(v) FROM t GROUP BY k`` on
+   ``torch-cuda`` and on eight logical shards (the first 33.5M rows), and
+   for the uniform keys streamed from a Parquet file, each run twice:
+   every group within its own bound ``n_g * 2**-52 * sum(|x_g|)`` against
+   ``np.bincount``, both answers bit-equal, the walls;
 9. dist_step (uniform, then Zipf): BASELINE config 5's distributed join +
    group-by step (``bench_dist_torch.py``'s data and capacity planning, through
    ``partition_histogram`` and so the radix_hist kernel) on a mesh of eight
@@ -139,7 +152,7 @@ Phases, each printing one JSON line:
 The eight shards on one card measure the distributed code path, not
 scaling; ``multiprocess`` on four cards does (``--only multiprocess`` runs
 phases 1, 2, 11 and 20 and prints no kernel line; ``--only corpus`` phases
-1, 2, 8 and 20).  The line before the
+1, 2, 8 and 20; ``--only float_sums`` phases 1, 2, 8a and 20).  The line before the
 last is a JSON object with one entry per kernel (radix_hist's launches
 include the ranks'); the last line is ``{"ok": true, "device": {...}}``.
 Any failure raises.
@@ -204,6 +217,13 @@ SSB_CITIES = np.array([f"{n[:9]:<9}{i}" for n in SSB_NATIONS
 # TIMESTAMP predicates with date strings: an in-memory table of this many
 # rows, timestamps uniform over 2020-2024
 TEMPORAL_ROWS = 100_000_000
+# float group sums: the groupby bench width (100M rows, 4M keys), the
+# mesh at dist_step's size; the operator's timed calls
+FSUM_ROWS, FSUM_GROUPS = GROUPBY_ROWS, GROUPBY_GROUPS
+FSUM_MESH_ROWS = DIST_SHARDS * DIST_ROWS_PER_SHARD
+FSUM_SEED = 46
+FSUM_OP_REPS = 10
+FSUM_SQL = "SELECT k, SUM(v) AS s, AVG(v) AS a FROM t GROUP BY k"
 # the entry points: entry()'s step at the groupby bench width (keys in
 # [0, 128)); the CLI's Parquet table, the largest the default config caches
 # whole (under its 10M-row threshold)
@@ -1152,8 +1172,9 @@ class _Part:
         ORDER BY, its key columns in order; integers and strings exact,
         floats within ``rtol = atol = 1e-12``.  With ``summation_bound``
         (the scaled tables), a float SUM/AVG column that misses that may
-        be held to ``n * 2**-52 * sum(|x|)`` instead (``torch_corpus.
-        summation_bound``), and each such column is printed."""
+        be held, row by row, to its own group's ``n_g * 2**-52 *
+        sum(|x_g|)`` instead (``torch_corpus.summation_bound``), and each
+        such column is printed."""
         C = _corpus()
         what = f"{what}: {sql}"
         try:
@@ -1164,7 +1185,8 @@ class _Part:
             return
         if not self.label(res, allowed, what):
             return
-        bounds = ((lambda col: C.summation_bound(oracle, sql, col))
+        bounds = ((lambda col, frame: C.summation_bound(oracle, sql, col,
+                                                        frame))
                   if summation_bound else None)
         exp = oracle.query(sql)
         try:
@@ -1191,9 +1213,9 @@ class _Part:
 
 def _float_detail(res, exp, oracle, sql: str) -> dict:
     """For a result whose first differing column is a float: the column,
-    its largest gap to the oracle and its summation bound
-    ``n * 2**-52 * sum(|x|)`` (None where it has none), so that a gap of
-    summation order reads apart from a wrong value."""
+    its largest gap to the oracle over that row's own summation bound
+    ``n_g * 2**-52 * sum(|x_g|)`` (None where it has none), so that a gap
+    of summation order reads apart from a wrong value."""
     C = _corpus()
     g, e = res.to_pandas(), exp.to_pandas()
     if list(g.columns) != list(e.columns) or len(g) != len(e):
@@ -1202,9 +1224,12 @@ def _float_detail(res, exp, oracle, sql: str) -> dict:
     col, _ = C.compare_frames(g, e)
     if col is None or "f" not in (g[col].dtype.kind, e[col].dtype.kind):
         return {}
-    return {"column": col, "gap": C.float_gap(g[col].to_numpy(),
-                                              e[col].to_numpy()),
-            "bound": C.summation_bound(oracle, sql, col)}
+    gaps = C.float_gaps(g[col].to_numpy(), e[col].to_numpy())
+    bound = C.summation_bound(oracle, sql, col, e)
+    if bound is None:
+        return {"column": col, "gap": float(gaps.max()), "bound": None}
+    i = int(np.argmax(gaps - bound))
+    return {"column": col, "gap": float(gaps[i]), "bound": float(bound[i])}
 
 
 def _corpus_single(dev) -> list:
@@ -2210,6 +2235,239 @@ def _run_temporal(dev, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# float group sums, each group from its own rows
+# ---------------------------------------------------------------------------
+
+def _fsum_data(dev, zipf: bool):
+    """``FSUM_ROWS`` int32 keys in [0, ``FSUM_GROUPS``), uniform or Zipf(1.5)
+    over the keys (the hot key 38 % of the rows), and float64 amounts: keys
+    below half the range take amounts around 1e9 in cents, the rest cents
+    below 100.  Drawn on the card (seed ``FSUM_SEED``), returned to the
+    host."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(FSUM_SEED)
+    if zipf:
+        cdf = torch.cumsum(torch.arange(1, FSUM_GROUPS + 1, device=dev,
+                                        dtype=torch.float64) ** -1.5, 0)
+        u = torch.rand(FSUM_ROWS, generator=g, device=dev,
+                       dtype=torch.float64) * cdf[-1]
+        k = torch.clamp(torch.searchsorted(cdf, u), max=FSUM_GROUPS - 1)
+        del cdf, u
+    else:
+        k = torch.randint(0, FSUM_GROUPS, (FSUM_ROWS,), generator=g,
+                          device=dev)
+    k = k.to(torch.int32)
+    v = torch.where(k < FSUM_GROUPS // 2,
+                    torch.randint(1, 200_000_000_000, (FSUM_ROWS,),
+                                  generator=g, device=dev),
+                    torch.randint(1, 10_000, (FSUM_ROWS,), generator=g,
+                                  device=dev)).to(torch.float64) / 100
+    return k.cpu().numpy(), v.cpu().numpy()
+
+
+def _fsum_reference(k, v) -> dict:
+    """numpy's per-group count, sum and summation bound ``n_g * 2**-52 *
+    sum(|x_g|)`` (every amount is positive), over the groups present."""
+    cnt = np.bincount(k, minlength=FSUM_GROUPS)
+    tot = np.bincount(k, weights=v, minlength=FSUM_GROUPS)
+    keys = np.flatnonzero(cnt)
+    cnt, tot = cnt[keys], tot[keys]
+    return {"k": keys, "cnt": cnt, "s": tot, "a": tot / cnt,
+            "bound": cnt * 2.0 ** -52 * tot}
+
+
+def _over_bound(got, ref, bound) -> float:
+    """The worst ``|got - ref| / bound`` over the groups."""
+    return float((np.abs(np.asarray(got) - ref) / bound).max())
+
+
+def _prefix_difference_sum(values, starts, ends):
+    """The parent's float group sum, for comparison only: one prefix sum
+    over every group, differenced at each group's boundaries."""
+    c = torch.cumsum(values, 0)
+    n = values.shape[0]
+    zero = torch.zeros((), dtype=c.dtype, device=c.device)
+    out = c[torch.clamp(ends, 0, n - 1)] - torch.where(
+        starts > 0, c[torch.clamp(starts - 1, 0, n - 1)], zero)
+    return torch.where(ends >= starts, out, zero)
+
+
+def _fsum_operator(dev, k, v, ref, dist: str, card: str) -> None:
+    """The segmented sum alone on the key-sorted amounts: within each
+    group's bound, bit-equal twice, no host sync (``set_sync_debug_mode
+    ("error")``); its CUDA-event time beside ``torch.cumsum`` plus the
+    boundary gathers, and that formula's worst gap over bound."""
+    from gpu_olap_tpu_torch.ops import aggregate as A
+
+    kd = torch.from_numpy(k).to(dev)
+    sk, perm = torch.sort(kd, stable=True)
+    vs = torch.from_numpy(v).to(dev)[perm]
+    del kd, perm
+    newflag = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                         sk[1:] != sk[:-1]])
+    starts, ends, _ = A._dense_boundaries(
+        newflag, newflag.sum(dtype=torch.int64), FSUM_ROWS, len(ref["k"]))
+    del sk, newflag
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan = A._sum_plan(starts, ends, FSUM_ROWS)
+        first = A._segmented_sum(vs, plan)
+        second = A._sum_by_boundary(vs, starts, ends)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not torch.equal(first.view(torch.int64), second.view(torch.int64)):
+        raise AssertionError(f"engine_float_sums {dist}: the segmented sum "
+                             "differs between two runs")
+    seg_over = _over_bound(first.cpu().numpy(), ref["s"], ref["bound"])
+    parent = _prefix_difference_sum(vs, starts, ends)
+    parent_over = _over_bound(parent.cpu().numpy(), ref["s"], ref["bound"])
+    levels, groups, _ = plan
+    longest = max(int(torch.diff(o).max()) for o in levels + [groups])
+    line = {
+        "part": "operator", "keys": dist, "card": card, "rows": FSUM_ROWS,
+        "groups": len(ref["k"]), "largest_group": int(ref["cnt"].max()),
+        "pieces": [int(o.numel()) - 1 for o in levels],
+        "longest_chain": longest,
+        "worst_gap_over_bound": seg_over,
+        "parent_worst_gap_over_bound": parent_over,
+        "bit_equal": True, "sync_debug_mode": "error",
+        "segmented_ms": _cuda_ms(
+            lambda: A._sum_by_boundary(vs, starts, ends), FSUM_OP_REPS),
+        "plan_ms": _cuda_ms(lambda: A._sum_plan(starts, ends, FSUM_ROWS),
+                            FSUM_OP_REPS),
+        "sum_given_plan_ms": _cuda_ms(lambda: A._segmented_sum(vs, plan),
+                                      FSUM_OP_REPS),
+        "cumsum_and_gathers_ms": _cuda_ms(
+            lambda: _prefix_difference_sum(vs, starts, ends), FSUM_OP_REPS),
+        "bytes_bound_ms": _bound_ms(vs.numel() * 8 + len(ref["k"]) * 16)}
+    _say("engine_float_sums", **line)
+    if seg_over > 1 or longest > A.SUM_TILE:
+        raise AssertionError(f"engine_float_sums {dist}: the segmented sum "
+                             f"misses a group's bound ({seg_over}) or adds "
+                             f"{longest} terms in one thread")
+    del vs, starts, ends, plan, levels, groups, first, second, parent
+    torch.cuda.empty_cache()
+
+
+def _fsum_query(eng, ref, rows: int, backend: str, what: str, card: str,
+                stats=dict, **extra) -> None:
+    """``FSUM_SQL`` twice on ``eng``: the backend, each group's SUM and AVG
+    within its own bound, both answers bit-equal, the walls, and the
+    ``stats()`` of the second run."""
+    outs, walls = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.query(FSUM_SQL)
+        walls.append(time.perf_counter() - t0)
+        if res.metrics["backend"] != backend:
+            raise AssertionError(f"engine_float_sums {what}: backend "
+                                 f"{res.metrics['backend']}, not {backend}")
+        out = res.to_pandas().sort_values("k")
+        if not np.array_equal(out["k"].to_numpy(), ref["k"]):
+            raise AssertionError(f"engine_float_sums {what}: groups differ")
+        outs.append(out)
+    same = all(np.array_equal(outs[0][c].to_numpy().view(np.int64),
+                              outs[1][c].to_numpy().view(np.int64))
+               for c in ("s", "a"))
+    s_over = _over_bound(outs[0]["s"].to_numpy(), ref["s"], ref["bound"])
+    a_over = _over_bound(outs[0]["a"].to_numpy(), ref["a"],
+                         ref["bound"] / ref["cnt"])
+    _say("engine_float_sums", part=what, card=card, sql=FSUM_SQL,
+         backend=backend, routes=res.metrics["routes"], rows=rows,
+         groups=len(ref["k"]), cold_wall_s=walls[0], warm_wall_s=walls[1],
+         sum_worst_gap_over_bound=s_over, avg_worst_gap_over_bound=a_over,
+         bit_equal=same, **extra, **stats())
+    if not same or max(s_over, a_over) > 1:
+        raise AssertionError(f"engine_float_sums {what}: a group misses its "
+                             f"bound (SUM {s_over}, AVG {a_over}) or the two "
+                             f"runs differ ({same})")
+
+
+def _fsum_streamed(dev, k, v, ref, d: str, card: str) -> None:
+    """``FSUM_SQL`` streamed from a Parquet file of ``k, v`` in ``d``, on
+    the hash-partitioned state (bench.py's 1B-row setting), which must
+    merge at least 8 chunks."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+
+    t0 = time.perf_counter()
+    path = f"{d}/t.parquet"
+    pq.write_table(pa.table({"k": k, "v": v}), path)
+    write_s = time.perf_counter() - t0
+    eng = TorchOlapEngine(EngineConfig(
+        max_groups=1 << 26, enable_cache=False, spill_dir=f"{d}/spill"),
+        device=dev)
+    eng.load_table("t", path)
+    if eng.catalog.is_cached("t"):
+        raise AssertionError("engine_float_sums: the table was cached")
+    sa = eng._get_device_executor()
+
+    def state():
+        st = sa._streaming
+        return {"chunks": st.last_stream_chunks,
+                "hash_parts": st.last_hash_parts,
+                "stream_s": st.last_stream_seconds}
+
+    _fsum_query(eng, ref, FSUM_ROWS, "torch-streaming", "streamed uniform",
+                card, write_s=write_s, stats=state)
+    if state()["chunks"] < 8:
+        raise AssertionError("engine_float_sums: the streamed state merged "
+                             f"{state()['chunks']} times")
+    os.remove(path)
+
+
+def _run_float_sums(dev, card: str) -> None:
+    """Float GROUP BY SUM/AVG at the bench width (100M rows, 4M int32 keys),
+    each group held to its own summation bound against numpy: the
+    segmented sum alone, then ``FSUM_SQL`` on ``torch-cuda`` and on eight
+    logical shards (the first ``FSUM_MESH_ROWS`` rows), uniform and Zipf,
+    and streamed from Parquet (uniform: its 4M groups fill the
+    hash-partitioned state)."""
+    import shutil
+    import tempfile
+
+    from gpu_olap_tpu_torch import EngineConfig, TorchOlapEngine
+
+    d = tempfile.mkdtemp(prefix="olap_fsum_")
+    try:
+        for dist in ("uniform", "zipf"):
+            t0 = time.perf_counter()
+            k, v = _fsum_data(dev, dist == "zipf")
+            ref = _fsum_reference(k, v)
+            setup_s = time.perf_counter() - t0
+            _fsum_operator(dev, k, v, ref, dist, card)
+
+            eng = bt.make_engine(dev)
+            eng.register("t", {"k": k, "v": v})
+            one = f"torch-{torch.device(dev).type}"
+            _fsum_query(eng, ref, FSUM_ROWS, one, f"{one} {dist}", card,
+                        setup_s=setup_s)
+            del eng
+
+            m = FSUM_MESH_ROWS
+            mesh = TorchOlapEngine(EngineConfig(
+                mesh_shape=(DIST_SHARDS,), max_groups=1 << 23,
+                enable_cache=False), device=dev,
+                mesh_devices=[dev] * DIST_SHARDS)
+            mesh.register("t", {"k": k[:m], "v": v[:m]})
+            _fsum_query(mesh, _fsum_reference(k[:m], v[:m]), m,
+                        "torch-distributed", f"mesh {dist}", card,
+                        shards=DIST_SHARDS)
+            del mesh
+
+            if dist == "uniform":
+                _fsum_streamed(dev, k, v, ref, d, card)
+            del k, v, ref
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # the entry points and the host surface
 # ---------------------------------------------------------------------------
 
@@ -2636,9 +2894,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on the "
                                  "GPU (no arguments: every phase).")
-    ap.add_argument("--only", choices=["multiprocess", "corpus"],
+    ap.add_argument("--only", choices=["multiprocess", "corpus",
+                                       "float_sums"],
                     help="run this phase alone (after the build): "
-                    "multiprocess, or corpus (engine_corpus)")
+                    "multiprocess, corpus (engine_corpus) or float_sums "
+                    "(engine_float_sums)")
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("rank_dir", nargs="?", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -2669,6 +2929,8 @@ def main() -> int:
         _run_multiprocess(card, capacities)
     if args.only == "corpus":
         _run_corpus(dev, card)
+    if args.only == "float_sums":
+        _run_float_sums(dev, card)
     if args.only:
         _assert_standalone()
         print(card, flush=True)
@@ -2682,6 +2944,7 @@ def main() -> int:
     kern.update(join_kern)
     launches.update(join_launches)
     _run_corpus(dev, card)
+    _run_float_sums(dev, card)
     dist_launches, lk, capacities = _run_dist_step(dev, card)
     launches.update(dist_launches)
     kern.update(_check_dist_kernels(dev, lk))

@@ -5,7 +5,8 @@ Port of ``gpu_olap_tpu/ops/aggregate.py`` on torch tensors:
 1. lexicographic sort of the key columns (multi-key, nulls-as-groups);
 2. run boundaries from sorted-key adjacency; group id = prefix sum of flags;
 3. per-group [start, end] positions from the run-start positions;
-4. SUM/COUNT/AVG as ``cumsum`` + boundary differences (exact for int64);
+4. integer SUM/COUNT as ``cumsum`` + boundary differences (exact for int64),
+   float SUM/AVG as a segmented sum of each group's own rows;
    MIN/MAX of the primary argument ride the key sort (min at run start, max
    at start + valid_count - 1); COUNT(DISTINCT) via a secondary
    (keys, value) sort; further MIN/MAX arguments take a segmented reduction;
@@ -34,8 +35,83 @@ from .dtypes import key_code, key_fill, torch_dtype
 from .sort import lexsort
 
 
+# no thread of the segmented float sum adds more than this many terms
+SUM_TILE = 1024
+
+
+def _merge_tiles(s, n: int):
+    """The sorted union of the nondecreasing offsets ``s`` (each in [0, n])
+    and the tile starts 0, T, 2T, ... below ``n``, an offset before an
+    equal tile start; returns it and each offset's position in it."""
+    dev = s.device
+    tiles = torch.arange(0, n, SUM_TILE, dtype=s.dtype, device=dev)
+    # tile starts below each offset, and offsets at or below each tile start
+    at_s = torch.arange(s.numel(), device=dev) + torch.clamp(
+        (s + SUM_TILE - 1) // SUM_TILE, max=tiles.numel())
+    at_t = torch.arange(tiles.numel(), device=dev) + torch.searchsorted(
+        s, tiles, right=True)
+    cuts = torch.empty(s.numel() + tiles.numel(), dtype=s.dtype, device=dev)
+    cuts[at_s] = s
+    cuts[at_t] = tiles
+    return cuts, at_s
+
+
+def _sum_plan(starts, ends, n: int):
+    """Offsets of :func:`_segmented_sum` over ``n`` sorted rows for the
+    group slots ``[starts, ends]`` of :func:`_dense_boundaries`: groups lie
+    in row order, and each non-empty one ends where the next slot starts,
+    the last at ``ends[-1]``.  Each level cuts its items into pieces at
+    every group start and every ``SUM_TILE``-th item, so a group of ``c``
+    items leaves at most ``ceil(c / SUM_TILE) + 1`` partial sums; levels
+    are added (two at 100M rows) until no group leaves more than
+    ``SUM_TILE``.  Fixed shapes, no host sync.  Returns (each level's piece
+    offsets, group offsets into the last level's sums, non-empty)."""
+    # rows past the last group fall into one extra slot that is dropped
+    last = torch.where(ends[-1:] >= starts[-1:], ends[-1:] + 1,
+                       starts[-1:])
+    s = torch.clamp(torch.cat([starts, last]).to(torch.int64), 0, n)
+    levels, items, longest = [], n, n
+    while longest > SUM_TILE:
+        cuts, s = _merge_tiles(s, items)
+        levels.append(torch.cat([cuts, torch.full((1,), items,
+                                                  dtype=cuts.dtype,
+                                                  device=cuts.device)]))
+        items = cuts.numel()
+        longest = -(-longest // SUM_TILE) + 1
+    return levels, s, ends >= starts
+
+
+def _serial_sums(x, offsets):
+    """``x[offsets[i]:offsets[i + 1]].sum()`` for each i.  As a column,
+    ``segment_reduce`` takes one CUDA thread a segment (a 1-D input takes
+    one block a segment, far slower over millions of short segments), so
+    every segment here holds at most ``SUM_TILE`` items."""
+    return torch.segment_reduce(x.unsqueeze(1), "sum", offsets=offsets,
+                                unsafe=True).squeeze(1)
+
+
+def _segmented_sum(values, plan):
+    """Per-group sums of sorted float ``values``, each group summed from
+    its own rows only, so its rounding error stays within ``n_g * 2**-52 *
+    sum(|x_g|)`` whatever the other groups hold.  Deterministic: each sum
+    is one thread's, in a fixed order, no atomics."""
+    levels, groups, has = plan
+    if not has.numel():
+        return values.new_zeros(0)
+    for offsets in levels:
+        values = _serial_sums(values, offsets)
+    total = _serial_sums(values, groups)
+    return torch.where(has, total,
+                       torch.zeros((), dtype=total.dtype, device=total.device))
+
+
 def _sum_by_boundary(values, starts, ends):
-    """Segment sums of a sorted array via cumsum + boundary differences."""
+    """Segment sums of a sorted array.  Integers: cumsum + boundary
+    differences (exact, as int64 wraps back).  Floats: the segmented
+    sum."""
+    if values.dtype.is_floating_point:
+        return _segmented_sum(values, _sum_plan(starts, ends,
+                                                values.shape[0]))
     c = torch.cumsum(values, 0, dtype=values.dtype)
     n = values.shape[0]
     end_v = c[torch.clamp(ends, 0, n - 1)]
@@ -308,6 +384,16 @@ def groupby_aggregate(
                 _payload_sorted(ix).to(torch.int64), starts, ends)
         return cnt_cache[ix]
 
+    sum_plan = None  # every float sum of the call shares one plan
+
+    def _group_sum(values):
+        nonlocal sum_plan
+        if not values.dtype.is_floating_point:
+            return _sum_by_boundary(values, starts, ends)
+        if sum_plan is None:
+            sum_plan = _sum_plan(starts, ends, n)
+        return _segmented_sum(values, sum_plan)
+
     results = []
     for spec, (kind, slot) in zip(aggs, plans):
         acc = spec["acc_dtype"]
@@ -340,12 +426,12 @@ def groupby_aggregate(
                 base_v = pv_code_s.to(torch_dtype(acc))
                 if pv_null_s is not None:
                     base_v = torch.where(pv_null_s == 0, base_v, 0)
-                results.append((_sum_by_boundary(base_v, starts, ends), has))
+                results.append((_group_sum(base_v), has))
             else:  # avg
                 base_v = pv_code_s.to(torch.float64)
                 if pv_null_s is not None:
                     base_v = torch.where(pv_null_s == 0, base_v, 0.0)
-                s = _sum_by_boundary(base_v, starts, ends)
+                s = _group_sum(base_v)
                 avg = s / torch.clamp(ride_cnt, min=1)
                 if has is not None:
                     avg = torch.where(has, avg, 0.0)
@@ -355,11 +441,11 @@ def groupby_aggregate(
         elif kind == "sum":
             sum_ix, cnt_ix = slot
             mv = _payload_sorted(sum_ix).to(torch_dtype(acc))
-            s = _sum_by_boundary(mv, starts, ends)
+            s = _group_sum(mv)
             results.append((s, None if cnt_ix is None else (_cnt_of(cnt_ix) > 0)))
         elif kind == "avg":
             fsum_ix, cnt_ix = slot
-            s = _sum_by_boundary(_payload_sorted(fsum_ix), starts, ends)
+            s = _group_sum(_payload_sorted(fsum_ix))
             if cnt_ix is None:
                 results.append((s / torch.clamp(sizes64, min=1), None))
             else:
@@ -542,8 +628,9 @@ def _agg_one_fallback(spec, perm, gid, in_prefix, starts, ends, n,
 
 def _distinct_agg(spec, key_ops, inv_thr, max_groups, n):
     """COUNT/SUM/AVG(DISTINCT x): secondary sort ordered by (group keys, x),
-    distinct flags from adjacency, cumsum + boundary diff.  SUM/AVG carry the
-    raw value as a sort payload and reduce only first occurrences."""
+    distinct flags from adjacency; counts as cumsum + boundary diff.  SUM/AVG
+    carry the raw value as a sort payload and reduce only first
+    occurrences."""
     func = spec["func"]
     values = spec["values"]
     valid = spec.get("valid")

@@ -17,6 +17,9 @@ neither:
   ``chip_smoke.py``'s ``engine_corpus`` phase runs the same corpora and
   the path fuzzers at scale.
 - The pinned-buffer feeder on its copy stream against the CPU feeder.
+- The float SUM/AVG probes of ``tests/test_torch_float_sums.py`` on
+  ``torch-cuda``, every group within its own summation bound of
+  ``math.fsum``, and the segmented sum twice bit-equal with no host sync.
 """
 
 import numpy as np
@@ -99,3 +102,43 @@ def test_pinned_feeder_on_cuda_matches_cpu_feeder():
     cpu = [int(c[0].to(torch.int64).sum()) for c in
            DeviceFeeder(num_buffers=3).feed((h, {"n": h.size}) for h in host)]
     assert [int(s) for s in sums] == cpu == [int(h.sum()) for h in host]
+
+
+@pytest.mark.cuda
+def test_cuda_float_group_sums_hold_their_own_bounds():
+    _need_gpu()
+    from gpu_olap_tpu_torch.ops import aggregate as A
+
+    for name in corpus.FLOAT_SUM_PROBES:
+        table = corpus.float_sum_table(name)
+        port = TorchOlapEngine(EngineConfig(enable_cache=False),
+                               device="cuda")
+        port.register("t", table)
+        k = table.column("k").to_numpy()
+        v = table.column("v").to_numpy(zero_copy_only=False)
+        for agg in ("", "DISTINCT "):
+            sql = (f"SELECT k, SUM({agg}v) AS s, AVG({agg}v) AS a FROM t "
+                   "GROUP BY k ORDER BY k")
+            got = port.query(sql)
+            assert got.metrics["backend"] == "torch-cuda", sql
+            got = got.to_pydict()
+            for i, g in enumerate(got["k"]):
+                x = v[(k == g) & ~np.isnan(v)]
+                x = np.unique(x) if agg else x
+                exp, bound = corpus.own_sum(x)
+                assert abs(got["s"][i] - exp) <= bound, (sql, g)
+                assert abs(got["a"][i] - exp / len(x)) <= bound / len(x)
+    # the operator alone: deterministic, and no host sync
+    kk, vv = corpus.float_sum_probe("large_first")
+    flags = torch.from_numpy(np.r_[True, kk[1:] != kk[:-1]]).cuda()
+    starts, ends, _ = A._dense_boundaries(
+        flags, flags.sum(dtype=torch.int64), len(kk), 8)
+    x = torch.from_numpy(vv).cuda()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = A._sum_by_boundary(x, starts, ends)
+        b = A._sum_by_boundary(x, starts, ends)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+    assert a[:3].tolist() == [1e17, 3.0, 17500.0]

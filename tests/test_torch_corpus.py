@@ -19,8 +19,9 @@ same on the GPU, where there is no JAX).  Here:
 
 Rows are compared as multisets (and under ORDER BY in order on its keys):
 integers and strings exactly, floats within ``rtol = atol = 1e-12``; a
-float SUM/AVG over a scaled table may be held to its summation bound
-``n * 2**-52 * sum(|x|)`` instead (``torch_corpus.summation_bound``).
+float SUM/AVG over a scaled table may be held, row by row, to its own
+group's summation bound ``n_g * 2**-52 * sum(|x_g|)`` instead
+(``torch_corpus.summation_bound``).
 """
 
 import numpy as np
@@ -256,31 +257,72 @@ def test_scaled_part_a_on_torch_cpu(scaled, sql):
     assert res.metrics["backend"] == "torch-cpu"
     corpus.assert_same_result(
         res, oracle.query(sql), sql, sql,
-        bounds=lambda col: corpus.summation_bound(oracle, sql, col))
+        bounds=lambda col, frame: corpus.summation_bound(oracle, sql, col,
+                                                         frame))
 
 
 def test_scaled_sum_is_held_to_its_summation_bound(scaled):
-    """The 4-way join's float SUM over 640,000 ``order_items`` rows misses
-    ``rtol=1e-12`` on ``torch-cpu`` (its group sums add in another order)
-    and stays far inside ``n * 2**-52 * sum(|x|)``."""
+    """The 4-way join's float SUM over 640,000 ``order_items`` rows, held
+    row by row to its own group's ``n_g * 2**-52 * sum(|x_g|)`` (no
+    tolerance first): ``torch-cpu`` sums each group from its own rows and
+    stays far inside it."""
     port, oracle = scaled
     sql = corpus.SLICE_QUERIES[39]
-    held = corpus.assert_same_result(
-        port.query(sql), oracle.query(sql), sql, sql,
-        bounds=lambda col: corpus.summation_bound(oracle, sql, col))
-    gap, bound = held["total_revenue"]
-    assert 0 < gap < bound / 100
-    # the bound reads the query's rows, HAVING and ORDER BY dropped
+    exp = oracle.query(sql)
+    got = corpus.canon(port.query(sql).to_pandas())
+    frame = corpus.canon(exp.to_pandas())
+    col, _ = corpus.compare_frames(
+        got, frame, rtol=0.0, atol=0.0,
+        bounds=lambda c, f: corpus.summation_bound(oracle, sql, c, f))
+    assert col is None
+    bound = corpus.summation_bound(oracle, sql, "total_revenue", frame)
+    gaps = corpus.float_gaps(got["total_revenue"].to_numpy(),
+                             frame["total_revenue"].to_numpy())
+    assert (gaps < bound / 10).all()
+    # each row's bound reads its own group's rows, HAVING and ORDER BY
+    # dropped
     ref = oracle.query(
-        "SELECT COUNT(*) AS n, SUM(abs(oi.quantity * p.price)) AS s "
+        "SELECT c.region AS region, p.category AS category, COUNT(*) AS n, "
+        "SUM(abs(oi.quantity * p.price)) AS s "
         "FROM orders o JOIN order_items oi ON o.order_id = oi.order_id "
         "JOIN products p ON oi.product_id = p.product_id "
         "JOIN customers c ON o.customer_id = c.customer_id "
         "WHERE o.order_date >= '2024-01-01' AND o.order_date < '2024-07-01' "
-        "AND o.status = 'completed'").to_pydict()
-    assert bound == pytest.approx(ref["n"][0] * 2.0 ** -52 * ref["s"][0],
-                                  rel=1e-9)
-    assert corpus.summation_bound(oracle, sql, "num_orders") is None
+        "AND o.status = 'completed' GROUP BY c.region, p.category"
+    ).to_pandas()
+    frame = corpus.canon(exp.to_pandas())
+    want = frame[["region", "category"]].merge(ref, on=["region",
+                                                        "category"])
+    assert len(want) == len(frame) > 1
+    np.testing.assert_allclose(bound, want["n"] * 2.0 ** -52 * want["s"],
+                               rtol=1e-9)
+    # the whole query's bound, which each row met before, is far larger
+    assert bound.max() < (want["n"].sum() * 2.0 ** -52 * want["s"].sum()) / 2
+    assert corpus.summation_bound(oracle, sql, "num_orders", frame) is None
+
+
+def test_summation_bound_refuses_the_prefix_difference_answer():
+    """Probe 1 of ``tests/test_torch_float_sums.py``: before the segmented
+    sum, the port gave 0.0 for both small groups (differences of one prefix
+    sum after a row of 1e17), 3.0 and 17500.0 by ``math.fsum``.  Each
+    group's own bound refuses that answer; the bound over every group,
+    which this one replaced, admitted it."""
+    port = _port(enable_cache=False)
+    port.register("t", corpus.float_sum_table("large_first"))
+    oracle = _oracle(port)
+    sql = "SELECT k, SUM(v) AS s FROM t GROUP BY k"
+    exp = corpus.canon(oracle.query(sql).to_pandas())
+    assert exp["s"].tolist() == [1e17, 3.0, 17500.0]
+    parent = exp.assign(s=[1e17, 0.0, 0.0])
+    col, _ = corpus.compare_frames(
+        parent, exp,
+        bounds=lambda c, f: corpus.summation_bound(oracle, sql, c, f))
+    assert col == "s"
+    bound = corpus.summation_bound(oracle, sql, "s", exp)
+    assert bound[1] < 1e-14 and bound[2] < 1e-6
+    whole = oracle.query("SELECT COUNT(*) AS n, SUM(abs(v)) AS s FROM t")
+    whole = whole.to_pydict()
+    assert whole["n"][0] * 2.0 ** -52 * whole["s"][0] > 17500.0
 
 
 @pytest.mark.parametrize("seed", [3, 11, 17, 42])
@@ -294,7 +336,8 @@ def test_scaled_part_b_on_torch_cpu(seed):
     oracle = _oracle(port)
     corpus.assert_same_result(
         res, oracle.query(sql), sql, sql,
-        bounds=lambda col: corpus.summation_bound(oracle, sql, col))
+        bounds=lambda col, frame: corpus.summation_bound(oracle, sql, col,
+                                                         frame))
 
 
 def test_order_keys_and_comparison():
@@ -317,5 +360,5 @@ def test_order_keys_and_comparison():
                                   "SELECT a, b FROM t", "float")
     held = corpus.assert_same_result(
         got, exp.assign(b=[np.nan, 0.5 + 1e-9]), "SELECT a, b FROM t",
-        "bounded", bounds=lambda col: 1e-8)
+        "bounded", bounds=lambda col, frame: 1e-8)
     assert held["b"][0] == pytest.approx(1e-9)

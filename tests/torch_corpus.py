@@ -40,6 +40,7 @@ the same as at ``scale=1``.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import re
 
@@ -896,29 +897,34 @@ def canon(df):
     return df.sort_values(cols).reset_index(drop=True) if cols else df
 
 
-def float_gap(g, e):
-    """The largest absolute difference of two float columns, NaN against
-    NaN counted as equal (inf if only one side is NaN)."""
+def float_gaps(g, e):
+    """The absolute difference of two float columns row by row, NaN against
+    NaN and equal infinities counted as equal (inf where only one side is
+    NaN)."""
     g, e = g.astype(np.float64), e.astype(np.float64)
     gn, en = np.isnan(g), np.isnan(e)
-    if not np.array_equal(gn, en):
-        return np.inf
-    ok = ~gn
-    if not ok.any():
-        return 0.0
     with np.errstate(invalid="ignore"):
-        d = np.abs(g[ok] - e[ok])
-    d[g[ok] == e[ok]] = 0.0  # equal infinities
-    return float(d.max())
+        d = np.abs(g - e)
+    d[(g == e) | (gn & en)] = 0.0
+    d[gn != en] = np.inf
+    return d
+
+
+def float_gap(g, e):
+    """The largest of :func:`float_gaps` (0.0 for no rows)."""
+    d = float_gaps(g, e)
+    return float(d.max()) if d.size else 0.0
 
 
 def compare_frames(got, exp, rtol=RTOL, atol=ATOL, bounds=None):
     """Compare two frames of the same columns and row count, column by
     column: integers and strings exactly, floats within ``rtol``/``atol``
     (NaN equal to NaN).  A float column that misses that tolerance may
-    instead be held to ``bounds(col)`` (an absolute bound, or None for
-    none).  Returns ``(first differing column or None, {col: (gap,
-    bound)})`` for the columns held to their bound."""
+    instead be held, row by row, to ``bounds(col, exp)``: an absolute bound
+    for each row of ``exp`` (an array, or one number for every row), or
+    None for none.  Returns ``(first differing column or None, {col: (gap,
+    bound)})`` for the columns held to their bounds, each with the gap and
+    bound of its row nearest its bound."""
     held = {}
     for col in got.columns:
         g, e = got[col].to_numpy(), exp[col].to_numpy()
@@ -926,11 +932,17 @@ def compare_frames(got, exp, rtol=RTOL, atol=ATOL, bounds=None):
             if np.allclose(g.astype(np.float64), e.astype(np.float64),
                            rtol=rtol, atol=atol, equal_nan=True):
                 continue
-            bound = bounds(col) if bounds is not None else None
-            gap = float_gap(g, e)
-            if bound is not None and gap <= bound:
-                held[col] = (gap, bound)
-                continue
+            bound = bounds(col, exp) if bounds is not None else None
+            if bound is not None:
+                gaps = float_gaps(g, e)
+                bound = np.broadcast_to(np.asarray(bound, np.float64),
+                                        gaps.shape)
+                if (gaps <= bound).all():
+                    with np.errstate(divide="ignore", invalid="ignore"):
+                        share = np.where(gaps > 0, gaps / bound, 0.0)
+                    i = int(np.argmax(share))
+                    held[col] = (float(gaps[i]), float(bound[i]))
+                    continue
         elif np.array_equal(g, e):
             continue
         return col, held
@@ -952,9 +964,12 @@ def assert_same_result(got, exp, sql: str, what: str, bounds=None) -> dict:
     if col is None:
         keys = order_keys(sql, list(g.columns))
         if keys:
+            e = e.reset_index(drop=True)
+            # the bounds of the ordered rows, read from their whole rows
+            ordered = None if bounds is None else (
+                lambda c, _frame: bounds(c, e))
             col, more = compare_frames(g[keys].reset_index(drop=True),
-                                       e[keys].reset_index(drop=True),
-                                       bounds=bounds)
+                                       e[keys], bounds=ordered)
             held.update(more)
             if col is not None:
                 col = f"{col} (in ORDER BY order)"
@@ -994,39 +1009,118 @@ def _top_from(sql: str) -> int:
     return -1
 
 
-def summation_bound(oracle, sql: str, column: str):
-    """The absolute bound ``n * 2**-52 * sum(|x|)`` on the rounding error
-    of the float ``SUM(x) AS column`` of ``sql`` summed in any order: ``n``
-    the rows the aggregate reads and ``sum(|x|)`` the sum of their
-    magnitudes, both from ``oracle`` over the query's FROM, WHERE and GROUP
-    BY (HAVING, ORDER BY and LIMIT dropped: their groups' rows were summed
-    too).  ``AVG(x) AS column``: that bound over the smallest group's count
-    of ``x``.  ``SUM(DISTINCT x)`` / ``AVG(DISTINCT x)``: the distinct
-    values are among the rows, so the rows' ``n`` and ``sum(|x|)`` bound
+def _output_name(item: str):
+    """``(expression, output column name)`` of one SELECT item; the name is
+    None for an expression without an alias."""
+    m = re.fullmatch(r"(.*)\s+AS\s+(\w+)", item, re.S)
+    if m:
+        return m.group(1).strip(), m.group(2)
+    if re.fullmatch(r"[\w.]+", item):
+        return item, item.split(".")[-1]
+    return item, None
+
+
+def summation_bound(oracle, sql: str, column: str, frame):
+    """Per-row absolute bounds on the rounding error of the float ``SUM(x)
+    AS column`` of ``sql`` summed in any order, for the rows of ``frame`` (a
+    result of ``sql``): each row's bound is ``n_g * 2**-52 * sum(|x_g|)`` of
+    its own group g, ``n_g`` the rows the aggregate reads in g and
+    ``sum(|x_g|)`` their magnitudes, both from ``oracle`` over the query's
+    FROM, WHERE and GROUP BY (HAVING, ORDER BY and LIMIT dropped).  Rows
+    are matched to groups on the GROUP BY expressions that the SELECT list
+    outputs; a row matching several groups (the list outputs only some of
+    the keys, or none) takes the largest of their bounds, never their sum.
+    ``AVG(x) AS column``: each group's bound over its count of ``x``.
+    ``SUM(DISTINCT x)`` / ``AVG(DISTINCT x)``: the distinct values are
+    among the group's rows, so the rows' ``n_g`` and ``sum(|x_g|)`` bound
     theirs.  None for any other column or a UNION."""
     if "UNION" in sql or not sql.startswith("SELECT "):
         return None
     cut = _top_from(sql)
     if cut < 0:
         return None
+    items = [_output_name(it) for it in _split_top(sql[len("SELECT "):cut])]
     item = None
-    for it in _split_top(sql[len("SELECT "):cut]):
-        m = re.fullmatch(r"(SUM|AVG)\((?:DISTINCT\s+)?(.*)\)\s+AS\s+(\w+)",
-                         it, re.S)
-        if m and m.group(3) == column:
+    for expr, name in items:
+        m = re.fullmatch(r"(SUM|AVG)\((?:DISTINCT\s+)?(.*)\)", expr, re.S)
+        if m and name == column:
             item = m
     if item is None:
         return None
     func, arg = item.group(1), item.group(2)
     rest = re.split(r" (?:HAVING|ORDER BY|LIMIT) ", sql[cut:])[0]
-    q = (f"SELECT COUNT(*) AS n__, COUNT({arg}) AS c__, "
-         f"SUM(abs({arg})) AS s__{rest}")
+    m = re.search(r" GROUP BY (.*)$", rest, re.S)
+    group = set()
+    for g in _split_top(m.group(1)) if m else []:
+        if g.isdigit():
+            g = items[int(g) - 1][0]
+        group.add(next((e for e, nm in items if nm == g), g))
+    keys = [(e, nm) for e, nm in items
+            if e in group and nm is not None and nm in frame.columns]
+    sel = [f"{e} AS {nm}" for e, nm in keys]
+    q = (f"SELECT {', '.join(sel + [''])}COUNT(*) AS n__, "
+         f"COUNT({arg}) AS c__, SUM(abs({arg})) AS s__{rest}")
     r = oracle.query(q).to_pandas()
-    n = float(r["n__"].sum())
-    total = float(np.nansum(r["s__"].to_numpy(dtype=np.float64)))
-    bound = n * EPS * total
+    s = np.nan_to_num(r["s__"].to_numpy(dtype=np.float64))
+    r["b__"] = r["n__"].to_numpy(np.float64) * EPS * s
     if func == "AVG":
-        counts = r["c__"].to_numpy()
-        counts = counts[counts > 0]
-        bound /= float(counts.min()) if counts.size else 1.0
-    return bound
+        r["b__"] /= np.maximum(r["c__"].to_numpy(np.float64), 1.0)
+    if not len(r):
+        return np.zeros(len(frame))
+    if not keys:
+        return np.full(len(frame), float(r["b__"].max()))
+    names = [nm for _, nm in keys]
+    per_key = r.groupby(names, dropna=False, sort=False)["b__"].max()
+    got = frame[names].merge(per_key.reset_index(), how="left", on=names)
+    return got["b__"].fillna(r["b__"].max()).to_numpy(np.float64)
+
+
+def own_sum(x):
+    """``(math.fsum(x), len(x) * 2**-52 * sum(|x|))``: the exact sum of one
+    group's values and the bound on the rounding error of any order of
+    summing them.  Where ``x`` holds an infinity the sum is numpy's (inf,
+    -inf or NaN) and the bound 0: only that value is right."""
+    x = np.asarray(x, np.float64)
+    if not np.isfinite(x).all():
+        return float(np.sum(x)), 0.0
+    return math.fsum(x), len(x) * EPS * math.fsum(np.abs(x))
+
+
+# ---------------------------------------------------------------------------
+# float group sums of unlike magnitudes (tests/test_torch_float_sums.py)
+# ---------------------------------------------------------------------------
+
+FLOAT_SUM_PROBES = ("large_first", "fees")
+
+
+def float_sum_probe(name: str):
+    """``(k, v)`` of a probe whose groups differ in magnitude, in key
+    order.  ``large_first``: k=0 one row of 1e17, k=1 three rows of 1.0,
+    k=2 70,000 rows of 0.25.  ``fees``: k=0 100,000 rows of 1e10, k=1 1,000
+    rows of cents (seed 0), a ledger of a few large accounts and many small
+    fees."""
+    if name == "large_first":
+        k = np.repeat(np.arange(3), [1, 3, 70_000])
+        v = np.concatenate([[1e17], np.ones(3), np.full(70_000, 0.25)])
+    elif name == "fees":
+        rng = np.random.default_rng(0)
+        k = np.repeat(np.arange(2), [100_000, 1_000])
+        v = np.concatenate([np.full(100_000, 1e10),
+                            rng.integers(1, 100, 1_000) / 100])
+    else:
+        raise KeyError(name)
+    return k, v
+
+
+def float_sum_table(name: str, nulls: int = 2):
+    """The probe as a table ``t(k int64, g string, v float64)``: ``g`` is
+    ``acct<k>``, each group also holds ``nulls`` NULL ``v``, and the rows
+    are shuffled (seed 1)."""
+    k, v = float_sum_probe(name)
+    groups = np.unique(k)
+    k = np.concatenate([k, np.repeat(groups, nulls)])
+    v = np.concatenate([v, np.full(len(groups) * nulls, np.nan)])
+    order = np.random.default_rng(1).permutation(len(k))
+    k, v = k[order], v[order]
+    return pa.table({"k": k, "g": np.array([f"acct{x}" for x in k]),
+                     "v": pa.array(v, mask=np.isnan(v))})
