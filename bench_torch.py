@@ -76,7 +76,7 @@ LABELS = {"join": "inner_join_100Mx100M", "groupby": "groupby_100M_4Mgrp",
           "join_lookup": "inner_join_lookup_100Mx10M",
           "groupby_1b": "groupby_1B_4Mgrp"}
 KERNELS = ("filter_agg", "seg_agg", "stream_compact", "expand_fill",
-           "radix_hist")
+           "radix_hist", "run_scan")
 #: a child still running after this long is killed and its config fails
 CHILD_TIMEOUT_S = 3300.0
 #: rows per piece of the 1B-row Parquet file (bench.py:229)

@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only multiprocess  # the build and phase 11 alone
     python3 chip_smoke.py --only corpus        # the build and phase 8 alone
     python3 chip_smoke.py --only float_sums    # the build and phase 8a alone
+    python3 chip_smoke.py --only run_scan      # the build and phase 4a alone
 
 Phases, each printing one JSON line:
 
@@ -28,6 +29,16 @@ Phases, each printing one JSON line:
    against their plain versions at the bench shapes (200M rows; 100M rows
    x 4M groups), with both times and the bound (the card's memory rate
    from ``utils.metrics``);
+4a. kernels_run_scan: run_scan (the join's run fills, ``cummax_i32`` and
+   ``rev_cummin_i32``) against its plain version, exactly, both directions:
+   lengths 0, 1 and around its 4,096-element tile, a ragged length of 300
+   tiles, uniform int32 with both extremes, all equal, ascending,
+   descending, join-shaped seeds, views at offsets 1-3; then at the `join`
+   merge's 200M elements, join-shaped seeds (the runs of 200M sorted keys
+   in [0, 50M): starts ascending and -1 elsewhere forward, ends ascending
+   and INT32_MAX elsewhere reverse) and uniform int32, with the kernel's
+   time, the plain version's (``torch.cummax``, the flipped
+   ``torch.cummin``), ``torch.cummax``'s as the library call, and the bound;
 5. engine_bench: ``TorchOlapEngine(device="cuda")`` runs the filter and
    GROUP BY bench queries on ``bench_torch.py``'s tables (exact against
    numpy, launch counts > 0); engine_typed_literal, one line per query:
@@ -45,7 +56,7 @@ Phases, each printing one JSON line:
    and a GROUP BY over its pairs (100M x 100M), then the three bench joins
    (join 100M x 100M, join_lookup 100M x 10M, sortmerge 25M x 25M, the
    last two on ``bench_torch.py``'s tables);
-   stream_compact and expand_fill must launch;
+   stream_compact, expand_fill and run_scan must launch;
 7. kernels_join_shapes: stream_compact and expand_fill against their plain
    versions on the inputs the stream join gave them, with both times, the
    bound and one PyTorch call for the same function (``x[:, mask]`` and
@@ -85,7 +96,7 @@ Phases, each printing one JSON line:
    group-by step (``bench_dist_torch.py``'s data and capacity planning, through
    ``partition_histogram`` and so the radix_hist kernel) on a mesh of eight
    logical shards on the card, 2^22 rows per shard per side, exact against
-   numpy with no overflow;
+   numpy with no overflow; radix_hist and run_scan must launch;
 10. kernels_dist_shapes: radix_hist against its plain version on 200M keys
     at shifts 0, 8, 16 and 24 and on the step's partition ids (8 and 1
     shards), with both times, the bound and ``torch.bincount``'s;
@@ -99,14 +110,15 @@ Phases, each printing one JSON line:
     plan's), runs the step on its shards; rank 0 gathers
     every shard's groups and checks them exact against numpy; per rank:
     warm walls, the shuffle and local stages, the bytes sent to other
-    ranks, the step's all-to-all alone, peak device bytes and B5
-    launches.  A rank that fails or outlives 300 s fails the phase, with
-    every rank killed;
+    ranks, the step's all-to-all alone, peak device bytes and the B5 and
+    run_scan launches, both of which must launch on every rank.  A rank
+    that fails or outlives 300 s fails the phase, with every rank killed;
 12. engine_distributed: ``TorchOlapEngine`` with ``mesh_shape=(8,)`` on the
     same logical mesh: the distributed query corpus on 1M rows against the
     CPU oracle, then a config-5 SQL join + GROUP BY on 8M rows per side
     (uniform, then Zipf keys on the skew-broadcast route), and the uniform
     join under a string-literal bound on its key, exact against numpy;
+    run_scan must launch;
 13. engine_streaming, one line per query: out-of-core execution through
     ``TorchOlapEngine(device="cuda")`` from Parquet files written to a
     temporary directory (removed at the end): bench.py's 1B-row table
@@ -152,10 +164,11 @@ Phases, each printing one JSON line:
 The eight shards on one card measure the distributed code path, not
 scaling; ``multiprocess`` on four cards does (``--only multiprocess`` runs
 phases 1, 2, 11 and 20 and prints no kernel line; ``--only corpus`` phases
-1, 2, 8 and 20; ``--only float_sums`` phases 1, 2, 8a and 20).  The line before the
-last is a JSON object with one entry per kernel (radix_hist's launches
-include the ranks'); the last line is ``{"ok": true, "device": {...}}``.
-Any failure raises.
+1, 2, 8 and 20; ``--only float_sums`` phases 1, 2, 8a and 20; ``--only
+run_scan`` phases 1, 2, 4a and 20).  The line before the last is a JSON
+object with one entry per kernel (radix_hist's launches include the
+ranks'; run_scan's count phases 6, 9, 11 and 12); the last line is
+``{"ok": true, "device": {...}}``.  Any failure raises.
 """
 
 from __future__ import annotations
@@ -686,7 +699,109 @@ def _check_kernels(dev):
          seg_agg_plain_ms=sa_plain_ms, seg_agg_bound_ms=sa_bound)
     # neither has one PyTorch call computing the same function
     return {"filter_agg": (fa_err, fa_ms, fa_plain_ms, fa_bound, None),
-            "seg_agg": (sa_err, sa_ms, sa_plain_ms, sa_bound, None)}
+            "seg_agg": (sa_err, sa_ms, sa_plain_ms, sa_bound, None),
+            **_check_run_scan(dev)}
+
+
+def _run_scan_cases(dev):
+    """(name, x): lengths 1, tile - 1, tile, tile + 1 and a ragged many-tile
+    length, uniform int32 with both extremes, all equal, strictly
+    descending, join-shaped seeds for each direction, views at offsets 1-3
+    (scalar loads) and an empty input."""
+    from gpu_olap_tpu_torch.ops.kernels import _build
+
+    tile = _build.load().olap_run_scan_tile()
+    g = np.random.default_rng(700)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+    rand = g.integers(I32_MIN, I32_MAX, 300 * tile + 77, endpoint=True)
+    rand[[5, 4 * tile + 3]] = (I32_MIN, I32_MAX)
+    base = t(rand)
+    cases = [(f"uniform_n_{n}", t(rand[:n]))
+             for n in (0, 1, tile - 1, tile, tile + 1, 2 * tile + 9,
+                       rand.shape[0])]
+    cases += [("all_equal", t(np.full(5 * tile + 3, -7))),
+              ("descending", t(1_000_000 - np.arange(7 * tile + 11))),
+              ("ascending", t(np.arange(7 * tile + 11) - 500))]
+    keys = np.sort(g.integers(0, 25 * tile, 100 * tile + 5))
+    start = np.concatenate([[True], keys[1:] != keys[:-1]])
+    end = np.concatenate([start[1:], [True]])
+    idx = np.arange(keys.shape[0])
+    cases += [("join_seeds_starts", t(np.where(start, idx, -1))),
+              ("join_seeds_ends", t(np.where(end, idx, I32_MAX)))]
+    for off in (1, 2, 3):
+        cases += [(f"view_{off}_len_{n}", base[off:off + n])
+                  for n in (1, 7, tile - off, tile + 5, 3 * tile + 1)]
+    return cases
+
+
+def _run_scan_inputs(dev, n: int):
+    """At ``n`` elements (the `join` merge's length): join-shaped seeds for
+    each direction (the runs of ``n`` sorted keys in [0, JOIN_KEYS): run
+    starts ascending and -1 elsewhere, run ends ascending and INT32_MAX
+    elsewhere) and uniform int32 with both extremes."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    keys = torch.randint(0, JOIN_KEYS, (n,), generator=gen, device=dev,
+                         dtype=torch.int32).sort().values
+    change = keys[1:] != keys[:-1]
+    del keys
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    starts = torch.where(torch.cat([one, change]), idx, -1)
+    ends = torch.where(torch.cat([change, one]), idx, I32_MAX)
+    del change, idx
+    uniform = torch.randint(I32_MIN, I32_MAX, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    uniform[0], uniform[n // 2] = I32_MAX, I32_MIN
+    return starts, ends, uniform
+
+
+def _check_run_scan(dev):
+    """run_scan (both directions) against its plain version, exactly, on
+    the edge cases and at ``2 * JOIN_ROWS`` elements; at that length the
+    kernel's time, the plain version's (``torch.cummax``/``cummin``, which
+    is also the library call; reverse with its two flips) and the bound."""
+    from gpu_olap_tpu_torch.ops.kernels import run_scan as rs
+
+    scans = (("cummax", rs.cummax_i32, rs.cummax_plain),
+             ("rev_cummin", rs.rev_cummin_i32, rs.rev_cummin_plain))
+    cases = _run_scan_cases(dev)
+    for name, x in cases:
+        for scan, kernel, plain in scans:
+            err = _max_abs_err(kernel(x), plain(x))
+            torch.cuda.synchronize()
+            if err:
+                raise AssertionError(f"run_scan {scan} case {name}: max |err| "
+                                     f"{err}")
+    n_cases = 2 * len(cases)
+    del cases
+    n = 2 * JOIN_ROWS
+    starts, ends, uniform = _run_scan_inputs(dev, n)
+    out, err = {}, 0
+    for scan, kernel, plain in scans:
+        for kind, x in (("join_seeds", starts if scan == "cummax" else ends),
+                        ("uniform", uniform)):
+            err = max(err, _max_abs_err(kernel(x), plain(x)))
+            torch.cuda.synchronize()
+        x = starts if scan == "cummax" else ends
+        out[f"{scan}_ms"] = _cuda_ms(lambda: kernel(x), 20)
+        out[f"{scan}_plain_ms"] = _cuda_ms(lambda: plain(x), 3)
+    # one PyTorch call for the forward scan: torch.cummax itself
+    lib_ms = _cuda_ms(lambda: torch.cummax(starts, 0), 3)
+    del starts, ends, uniform
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"run_scan != plain at {n} elements: {err}")
+    # each element read once and written once
+    bound = _bound_ms(n * 8)
+    _say("kernels_run_scan", edge_cases=n_cases, elements=n,
+         **out, cummax_library_ms=lib_ms, bound_ms=bound,
+         cummax_share_of_bound=bound / out["cummax_ms"],
+         rev_cummin_share_of_bound=bound / out["rev_cummin_ms"], exact=True)
+    return {"run_scan": (err, out["cummax_ms"], out["cummax_plain_ms"], bound,
+                         lib_ms)}
 
 
 # ---------------------------------------------------------------------------
@@ -1052,7 +1167,7 @@ def _run_joins(dev, card: str):
             (join_sql, sorted_r))}
     cold_s = time.perf_counter() - t0
     launches = {k: _build.launches[k]
-                for k in ("stream_compact", "expand_fill")}
+                for k in ("stream_compact", "expand_fill", "run_scan")}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the path did not launch: {launches}")
 
@@ -1518,9 +1633,8 @@ def _run_dist_step(dev, card: str):
     uniform, lk = _dist_step_case(dev, zipf=False)
     torch.cuda.empty_cache()
     zipf, _ = _dist_step_case(dev, zipf=True)
-    launches = {"radix_hist": _build.launches["radix_hist"]}
-    if not launches["radix_hist"]:
-        raise AssertionError("radix_hist did not launch on the dist path")
+    launches = {k: _build.launches[k] for k in ("radix_hist", "run_scan")}
+    _need_launch(launches, ("radix_hist", "run_scan"), "dist_step")
     for case in (uniform, zipf):
         if case["peak_device_bytes"] > 70e9:
             raise AssertionError(f"dist step peak {case['peak_device_bytes']}"
@@ -1689,7 +1803,7 @@ def _mp_rank(rank: int, d: str) -> int:
     _build.launches.clear()
     cases = {name: _mp_case(mesh, dev, name == "zipf", spec[name])
              for name in ("uniform", "zipf")}
-    launches = {"radix_hist": _build.launches["radix_hist"]}
+    launches = {k: _build.launches[k] for k in ("radix_hist", "run_scan")}
     backend = dist.get_backend(group)
     dist.destroy_process_group()
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
@@ -1707,7 +1821,7 @@ def _run_multiprocess(card: str, capacities: dict) -> dict:
     """BASELINE config 5 over a process group, one rank per card (one rank
     holding all eight shards on a one-card machine); every rank killed if
     one fails or the phase outlives ``MP_TIMEOUT_S``.  Returns the ranks'
-    radix_hist launches."""
+    radix_hist and run_scan launches, summed."""
     import shutil
     import subprocess
     import tempfile
@@ -1758,7 +1872,7 @@ def _run_multiprocess(card: str, capacities: dict) -> dict:
         shutil.rmtree(d, ignore_errors=True)
     seconds = time.perf_counter() - t0
     for r in ranks:
-        if r["backend"] != "nccl" or not r["launches"]["radix_hist"]:
+        if r["backend"] != "nccl" or not all(r["launches"].values()):
             raise AssertionError(f"multiprocess rank {r['rank']}: backend "
                                  f"{r['backend']}, launches {r['launches']}")
     per_case = {}
@@ -1780,9 +1894,10 @@ def _run_multiprocess(card: str, capacities: dict) -> dict:
                      f"{DIST_SHARDS} shards"),
          rows_per_shard_per_side=DIST_ROWS_PER_SHARD,
          devices=[r["device"] for r in ranks], **per_case,
-         launches_per_rank=[r["launches"]["radix_hist"] for r in ranks],
+         launches_per_rank=[r["launches"] for r in ranks],
          seconds=seconds)
-    return {"radix_hist": sum(r["launches"]["radix_hist"] for r in ranks)}
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ("radix_hist", "run_scan")}
 
 
 def _check_dist_kernels(dev, lk: np.ndarray):
@@ -1957,13 +2072,16 @@ def _run_engine_distributed(dev, card: str):
         eng.drop_table("l")
         eng.drop_table("r")
         del lk, rk, lv, rv, res
+    launches = dict(_build.launches)
     _say("engine_distributed", card=card, logical_mesh="8 shards on one "
          "card: the code path, not scaling", corpus_queries=len(DIST_CORPUS),
          corpus_rows=DIST_CORPUS_ROWS, corpus_seconds=corpus_s,
          corpus_routes=sorted(routes), joins=joins,
-         launches=dict(_build.launches), equal=True)
+         launches=launches, equal=True)
+    _need_launch(launches, ["run_scan"], "engine_distributed")
     del eng, oracle
     torch.cuda.empty_cache()
+    return launches["run_scan"]
 
 
 # ---------------------------------------------------------------------------
@@ -2895,10 +3013,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on the "
                                  "GPU (no arguments: every phase).")
     ap.add_argument("--only", choices=["multiprocess", "corpus",
-                                       "float_sums"],
+                                       "float_sums", "run_scan"],
                     help="run this phase alone (after the build): "
-                    "multiprocess, corpus (engine_corpus) or float_sums "
-                    "(engine_float_sums)")
+                    "multiprocess, corpus (engine_corpus), float_sums "
+                    "(engine_float_sums) or run_scan (kernels_run_scan)")
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("rank_dir", nargs="?", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -2931,6 +3049,8 @@ def main() -> int:
         _run_corpus(dev, card)
     if args.only == "float_sums":
         _run_float_sums(dev, card)
+    if args.only == "run_scan":
+        _check_run_scan(dev)
     if args.only:
         _assert_standalone()
         print(card, flush=True)
@@ -2945,12 +3065,15 @@ def main() -> int:
     launches.update(join_launches)
     _run_corpus(dev, card)
     _run_float_sums(dev, card)
+    # radix_hist and run_scan count over every phase that runs them
     dist_launches, lk, capacities = _run_dist_step(dev, card)
-    launches.update(dist_launches)
+    launches["radix_hist"] = dist_launches["radix_hist"]
+    launches["run_scan"] += dist_launches["run_scan"]
     kern.update(_check_dist_kernels(dev, lk))
     del lk
-    launches["radix_hist"] += _run_multiprocess(card, capacities)["radix_hist"]
-    _run_engine_distributed(dev, card)
+    for k, v in _run_multiprocess(card, capacities).items():
+        launches[k] += v
+    launches["run_scan"] += _run_engine_distributed(dev, card)
     _run_streaming(dev, card)
     _run_temporal(dev, card)
     _run_host_surface(dev, card)
@@ -2960,10 +3083,12 @@ def main() -> int:
                 "seg_agg": "gpu_olap_tpu/ops/pallas/seg_agg.py:84",
                 "stream_compact": "gpu_olap_tpu/ops/pallas/join_stream.py:52",
                 "expand_fill": "gpu_olap_tpu/ops/pallas/join_stream.py:174",
-                "radix_hist": "gpu_olap_tpu/ops/pallas/partition.py:25"}
+                "radix_hist": "gpu_olap_tpu/ops/pallas/partition.py:25",
+                # an XLA scan, no pallas_call: jax.lax.cummax
+                "run_scan": "gpu_olap_tpu/ops/join.py:192"}
     kernels = []
     for name in ("filter_agg", "seg_agg", "stream_compact", "expand_fill",
-                 "radix_hist"):
+                 "radix_hist", "run_scan"):
         err, ms, plain_ms, bound_ms, library_ms = kern[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"gpu_olap_tpu_torch/csrc/{name}.cu",

@@ -8,7 +8,10 @@ join, join_lookup and sortmerge on one device, then the distributed cells
 on the smoke's 8-shard logical mesh: dist_step (BASELINE config 5's fused
 step) and dist_join (the engine's SQL join + GROUP BY on 8M rows per side),
 each with uniform keys and, as dist_step_zipf and dist_join_zipf, with
-Zipf(1.5) probe keys.  Naming cells runs only those (a table feeding several runs
+Zipf(1.5) probe keys; then scans: the join's run fills alone at 64K and
+4M elements and the `join` merge length, PyTorch's ``cummax``/``cummin`` and
+the run_scan kernel, each with its CUDA-event time and the grids a
+profiled call shows.  Naming cells runs only those (a table feeding several runs
 once).  Each query runs once to warm up, three times untimed by the
 profiler, then once under ``torch.profiler``.  One JSON line per query
 gives:
@@ -21,7 +24,8 @@ gives:
   durations of the kernels they launched;
 - ``idle_share``: ``1 - device_busy_ms / wall_median_ms``;
 - ``peak_device_bytes``: the peak allocation over the warm and traced runs;
-- ``top``: the device events grouped by name, largest first.
+- ``top``: the device events grouped by name, largest first, each
+  kernel with the grid and block of its first launch.
 
 The full grouped list of each query goes to
 ``chiprun_out/trace_<query>.json``.  Exits non-zero without CUDA.
@@ -56,6 +60,25 @@ def device_events(prof) -> dict:
     return dict(by_name)
 
 
+def kernel_shapes(prof) -> dict:
+    """Grid and block of each kernel in the trace, by name (the first
+    launch of each), from the exported Chrome trace."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    shapes = {}
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("cat") == "kernel" and "grid" in args:
+            shapes.setdefault(e.get("name"), {"grid": args["grid"],
+                                              "block": args.get("block")})
+    return shapes
+
+
 def trace_run(name: str, run, card: str, what: str) -> dict:
     """Warm-up, three untraced runs and one traced run of ``run()``;
     returns the JSON line (see the module docstring)."""
@@ -79,6 +102,7 @@ def trace_run(name: str, run, card: str, what: str) -> dict:
     by_name = device_events(prof)
     if not by_name:
         raise AssertionError(f"{name}: the trace holds no device event")
+    shapes = kernel_shapes(prof)
     busy_ms = sum(by_name.values()) / 1e3
     wall_ms = float(np.median(walls)) * 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
@@ -91,7 +115,7 @@ def trace_run(name: str, run, card: str, what: str) -> dict:
                  "idle_share": 1 - busy_ms / wall_ms,
                  "peak_device_bytes": torch.cuda.max_memory_allocated(),
                  "top": [{"name": k[:100], "ms": v / 1e3,
-                          "share": v / 1e3 / busy_ms}
+                          "share": v / 1e3 / busy_ms, **shapes.get(k, {})}
                          for k, v in ranked[:TOP]]}
 
 
@@ -216,6 +240,50 @@ def _dist_join(dev, card, zipf=False):
          logical_mesh="8 shards on one card")
 
 
+def _scans(dev, card):
+    """The join's run fills alone on chip_smoke's join-shaped seeds, at
+    64K and 4M elements and at the `join` merge length: PyTorch's
+    ``cummax`` and flipped ``cummin`` (the plain versions), then the
+    run_scan kernel in both directions.  Per call: its CUDA-event time, its
+    host wall over back-to-back calls, and one profiled call's
+    device events, each kernel with its grid and block (a trace may hold
+    none: the line says so rather than failing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpu_olap_tpu_torch.ops.kernels import run_scan as rs
+
+    starts, ends, _uniform = cs._run_scan_inputs(dev, 2 * cs.JOIN_ROWS)
+    del _uniform
+    for n in (1 << 16, 1 << 22, starts.shape[0]):
+        for name, fn, x, reps in (
+                ("torch_cummax", rs.cummax_plain, starts[:n], 3),
+                ("torch_rev_cummin", rs.rev_cummin_plain, ends[-n:], 3),
+                ("run_scan_cummax", rs.cummax_i32, starts[:n], 20),
+                ("run_scan_rev_cummin", rs.rev_cummin_i32, ends[-n:], 20)):
+            ms = cs._cuda_ms(lambda: fn(x), reps)
+            # host clock over back-to-back calls: the launch overhead that
+            # short scans (streamed chunks, mesh shards) pay
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / reps * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn(x)
+                torch.cuda.synchronize()
+            by_name = device_events(prof)
+            shapes = kernel_shapes(prof)
+            _say(query=f"{name}_{n}", card=card, elements=n, ms=ms,
+                 wall_ms_per_call=wall_ms,
+                 device_events=len(by_name),
+                 kernels=[{"name": k[:100], "ms": v / 1e3,
+                           **shapes.get(k, {})}
+                          for k, v in sorted(by_name.items(),
+                                             key=lambda kv: -kv[1])],
+                 grids_in_trace={k[:100]: v for k, v in shapes.items()})
+
+
 BENCH_CFG = dict(max_groups=1 << 23, min_shape_bucket=1 << 16,
                  enable_cache=False)
 
@@ -232,7 +300,8 @@ def main() -> int:
              "dist_step": _dist_step,
              "dist_step_zipf": functools.partial(_dist_step, zipf=True),
              "dist_join": _dist_join,
-             "dist_join_zipf": functools.partial(_dist_join, zipf=True)}
+             "dist_join_zipf": functools.partial(_dist_join, zipf=True),
+             "scans": _scans}
     wanted = list(dict.fromkeys(sys.argv[1:] or cells))
     unknown = set(wanted) - set(cells)
     if unknown:

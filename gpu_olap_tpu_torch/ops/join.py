@@ -8,8 +8,9 @@ space, and matches are materialized into a fixed-capacity buffer with an
 overflow flag that the executor answers by growing the capacity and
 rerunning.
 
-Multi-operand ``lax.sort`` becomes :func:`..sort.lexsort`, and
-``lax.cummax``/``cummin`` become ``torch.cummax``/``torch.cummin``.  Where
+Multi-operand ``lax.sort`` becomes :func:`..sort.lexsort`, and the run
+fills ``lax.cummax`` and the flipped ``lax.cummin`` become the ``run_scan``
+kernel's :func:`cummax_i32` and :func:`rev_cummin_i32`.  Where
 the JAX package avoided a scatter only because the TPU serializes them (the
 inverse permutation of ``densify_keys``, the probe-order restore of
 ``probe_ranges_merge``, the dense fill of ``lookup_slots`` and the
@@ -24,6 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from .dtypes import INT64_MAX, key_top
+from .kernels.run_scan import cummax_i32, rev_cummin_i32
 from .sort import lexsort, lexsort_permutation
 
 I32_MAX = (1 << 31) - 1
@@ -146,7 +148,7 @@ def _run_base(newflag: torch.Tensor, seen: torch.Tensor,
     """Per element, the count of ``is_x`` elements before its key run,
     carried forward through the run (a cummax of run-start seeds)."""
     seed = torch.where(newflag, seen - is_x.to(torch.int32), -1)
-    return torch.cummax(seed.to(torch.int32), 0).values
+    return cummax_i32(seed.to(torch.int32))
 
 
 def probe_ranges_merge(build_code, build_invalid, probe_code, probe_invalid,
@@ -240,7 +242,7 @@ def probe_counts_sorted(build_code, build_invalid, probe_code, probe_invalid,
     last_mask = torch.cat([newflag[1:], torch.ones(1, dtype=torch.bool,
                                                    device=newflag.device)])
     seed = torch.where(last_mask, cp, I32_MAX).to(torch.int32)
-    run_end_cp = torch.flip(torch.cummin(torch.flip(seed, [0]), 0).values, [0])
+    run_end_cp = rev_cummin_i32(seed)
     pcnt_elem = torch.where(build_ok, run_end_cp - run_base_p,
                             0).to(torch.int32)
     return probe_ok, key_sorted, cnt_elem, build_ok, pcnt_elem, pay_s

@@ -68,6 +68,9 @@ _SIGNATURES = {
     "olap_radix_hist_wave_flush_keys": ([], ctypes.c_longlong),
     "olap_radix_hist_i32": ([_P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P,
                              _P], ctypes.c_int),
+    "olap_run_scan_tile": ([], ctypes.c_int),
+    "olap_run_scan_i32": ([_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P],
+                          ctypes.c_int),
 }
 
 
