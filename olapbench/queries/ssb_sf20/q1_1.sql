@@ -1,0 +1,3 @@
+SELECT SUM(lo_extendedprice * lo_discount) AS revenue
+FROM lineorder JOIN date ON lo_orderdate = d_datekey
+WHERE d_year = {year} AND lo_discount BETWEEN {discount_lo} AND {discount_hi} AND lo_quantity < 25

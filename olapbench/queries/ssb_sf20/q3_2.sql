@@ -1,0 +1,6 @@
+SELECT c_city, s_city, d_year, SUM(lo_revenue) AS revenue
+FROM customer JOIN lineorder ON lo_custkey = c_custkey
+  JOIN supplier ON lo_suppkey = s_suppkey JOIN date ON lo_orderdate = d_datekey
+WHERE c_nation = '{nation}' AND s_nation = '{nation}' AND d_year >= 1992 AND d_year <= 1997
+GROUP BY c_city, s_city, d_year
+ORDER BY d_year ASC, revenue DESC

@@ -1,0 +1,7 @@
+SELECT d_year, s_city, p_brand1, SUM(lo_revenue - lo_supplycost) AS profit
+FROM date JOIN lineorder ON lo_orderdate = d_datekey JOIN customer ON lo_custkey = c_custkey
+  JOIN supplier ON lo_suppkey = s_suppkey JOIN part ON lo_partkey = p_partkey
+WHERE c_region = '{region}' AND s_nation = '{nation}' AND (d_year = {year} OR d_year = {year_next})
+  AND p_category = '{category}'
+GROUP BY d_year, s_city, p_brand1
+ORDER BY d_year, s_city, p_brand1
