@@ -18,6 +18,11 @@ plans the torch path does not cover (cross joins) run on the CPU oracle and
 say so in ``metrics["backend"] == "cpu-fallback"``.
 ``metrics["routes"]`` names the device routes the query took: the
 ``torch_*`` counters of ``GLOBAL_METRICS`` that its execution bumped.
+``metrics["regrows"]`` counts the capacity-overflow reruns of the query on
+the single-device path (0 when none): a query that reads above 0 ran its
+plan more than once, and a larger ``join_expansion`` or ``max_groups``
+would spare the reruns.  ``metrics["query_id"]`` is the process-wide id
+that the query's spans carry (``utils/tracing.py``).
 ``GpuOlapEngine`` (alias ``TpuOlapEngine``) is the binding-style
 constructor of ``gpu_olap_tpu``: ``EngineConfig.from_kwargs`` over its
 keywords.
@@ -42,6 +47,7 @@ from .plan.physical import TpuTableScan, create_physical_plan
 from .sql.parser import parse_sql
 from .utils.metrics import GLOBAL_METRICS, Timer
 from .utils.torchenv import resolve_device
+from .utils import tracing
 from .utils.tracing import get_logger
 
 logger = get_logger(__name__)
@@ -90,16 +96,18 @@ class TorchOlapEngine:
     def register(self, name: str, data) -> None:
         """Register in-memory data: pandas DataFrame, Arrow Table, dict of
         arrays or a ``ColumnBatch``."""
-        if isinstance(data, ColumnBatch):
-            self.catalog.register_batch(name, data)
-        elif isinstance(data, dict):
-            self.catalog.register_batch(name, ColumnBatch.from_dict(data))
-        elif type(data).__module__.startswith("pandas"):
-            self.catalog.register_pandas(name, data)
-        elif type(data).__module__.startswith("pyarrow"):
-            self.catalog.register_arrow(name, data)
-        else:
-            raise TypeError(f"Cannot register {type(data)}")
+        with tracing.span(logger, "register", self.metrics, table=name):
+            if isinstance(data, ColumnBatch):
+                self.catalog.register_batch(name, data)
+            elif isinstance(data, dict):
+                self.catalog.register_batch(name, ColumnBatch.from_dict(data))
+            elif type(data).__module__.startswith("pandas"):
+                self.catalog.register_pandas(name, data)
+            elif type(data).__module__.startswith("pyarrow"):
+                self.catalog.register_arrow(name, data)
+            else:
+                raise TypeError(f"Cannot register {type(data)}")
+            tracing.annotate(rows=self.catalog.get_row_count(name))
 
     def get_table_schema(self, name: str):
         return self.catalog.get_schema(name)
@@ -125,7 +133,15 @@ class TorchOlapEngine:
 
     # -- execution -----------------------------------------------------------
     def execute_query(self, sql: str) -> QueryResult:
-        with Timer() as t_plan:
+        query_id = tracing.next_query_id()
+        with tracing.span(logger, "query", query_id=query_id):
+            res = self._execute_query(sql)
+            res.metrics["query_id"] = query_id
+            tracing.annotate(backend=res.metrics["backend"])
+        return res
+
+    def _execute_query(self, sql: str) -> QueryResult:
+        with tracing.span(logger, "plan"), Timer() as t_plan:
             physical = self.plan_query(sql)
         cache_key = None
         if self.config.enable_cache:
@@ -138,9 +154,10 @@ class TorchOlapEngine:
                 return QueryResult(hit, {"plan_seconds": t_plan.seconds,
                                          "exec_seconds": 0.0,
                                          "backend": "result-cache",
-                                         "routes": []})
+                                         "routes": [], "regrows": 0})
         backend = self._resolve_backend()
         routes = []
+        regrows = 0
         with Timer() as t_exec:
             if backend == "cpu":
                 batch = CpuExecutor(self.catalog, self.config).execute(physical)
@@ -167,6 +184,8 @@ class TorchOlapEngine:
                             batch = dev.execute(physical)
                             backend = dev.last_backend
                             routes = _routes_since(before)
+                            regrows = int(GLOBAL_METRICS.snapshot().get(
+                                "regrows", 0) - before.get("regrows", 0))
                     except DeviceUnsupported as e:
                         logger.info("device path unsupported (%s); CPU "
                                     "fallback", e)
@@ -185,6 +204,7 @@ class TorchOlapEngine:
             "exec_seconds": t_exec.seconds,
             "backend": backend,
             "routes": routes,
+            "regrows": regrows,
         })
 
     def query(self, sql: str) -> QueryResult:

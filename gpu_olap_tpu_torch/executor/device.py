@@ -50,6 +50,7 @@ from ..config import EngineConfig
 from ..interop.columnar import Column, ColumnBatch, DType, Schema
 from ..plan import physical as P
 from ..utils.metrics import GLOBAL_METRICS, Timer
+from ..utils import tracing
 from ..utils.tracing import get_logger
 from ..ops import aggregate as agg_ops
 from ..ops import filter as filter_ops
@@ -248,17 +249,20 @@ class DeviceExecutor:
             t["capacity"] * sum(a[0].element_size() for a in t["arrays"])
             for t in tables.values()
         )
-        for _attempt in range(8):
+        for attempt in range(8):
             meta = {"flag_names": [], "capacities": {}, "out_dicts": None,
                     "out_schema": None}
             interp = _Interpreter(self.config, tables, self._cap_override,
                                   meta, self.device)
-            with Timer() as t_exec:
+            with tracing.span(logger, "device_execute", attempt=attempt,
+                              rows_in=rows_in), Timer() as t_exec:
                 out = interp.run(plan)
                 flags = {k: bool(v) for k, v in
                          zip(meta["flag_names"], out["flags"])}
                 overflowed = [k for k, v in flags.items() if v]
                 out["count"] = int(out["count"])  # waits for the device
+                tracing.annotate(rows_out=out["count"],
+                                 overflowed=len(overflowed))
             if not overflowed:
                 batch = self._to_host(out, meta)
                 GLOBAL_METRICS.record_span(
@@ -279,6 +283,7 @@ class DeviceExecutor:
                 self._cap_override[key] = grown
                 logger.warning("device capacity overflow at %s: growing %d -> %d",
                                key, cur, grown)
+            GLOBAL_METRICS.bump("regrows")
         raise RuntimeError(
             "join/aggregate capacity kept overflowing after 8 growths")
 
@@ -318,70 +323,92 @@ class DeviceExecutor:
                 out[name] = cached[1]
                 continue
             self._table_cache.pop(name, None)  # free the stale copy first
-            host = self.catalog.get_table_data(name).to_numpy()
-            cap = max(host.num_rows, 1)
-            arrays = []
-            dicts = []
-            for col in host.columns:
-                data = np.zeros(cap, dtype=col.data.dtype)
-                data[: host.num_rows] = col.data
-                valid = None
-                if col.validity is not None:
-                    v = np.zeros(cap, dtype=bool)
-                    v[: host.num_rows] = col.validity
-                    valid = _upload(v, self.device)
-                arrays.append((_upload(data, self.device), valid))
-                dicts.append(col.dictionary)
-            int32_ok, ranges, uniques = _table_stats(
-                self.catalog, self.config, name, host)
-            # int32 shadow copies of zone-map-proven-narrow int64 columns:
-            # the int32 kernels read 4 B/row from them
-            narrow = {i: data.to(torch.int32)
-                      for i, (data, _v) in enumerate(arrays)
-                      if int32_ok[i] and data.dtype == torch.int64}
-            dense_idx = {i: _upload(d, self.device) for i, d in _dense_index(
-                host, self.catalog.get_stats(name) or {}, uniques).items()}
-            entry = {
-                "arrays": arrays,
-                "dicts": dicts,
-                "schema": host.schema,
-                "num_rows": host.num_rows,
-                "capacity": cap,
-                "int32_ok": int32_ok,
-                "ranges": ranges,
-                "uniques": uniques,
-                "narrow": narrow,
-                "dense_idx": dense_idx,
-            }
-            self._table_cache[name] = (ver, entry)
-            out[name] = entry
+            with tracing.span(logger, "upload", GLOBAL_METRICS, table=name):
+                out[name] = self._upload_table(name, ver)
         return out
+
+    def _upload_table(self, name: str, ver) -> dict:
+        """The table's device entry, from its host columns; cached."""
+        host = self.catalog.get_table_data(name).to_numpy()
+        cap = max(host.num_rows, 1)
+        arrays = []
+        dicts = []
+        for col in host.columns:
+            data = np.zeros(cap, dtype=col.data.dtype)
+            data[: host.num_rows] = col.data
+            valid = None
+            if col.validity is not None:
+                v = np.zeros(cap, dtype=bool)
+                v[: host.num_rows] = col.validity
+                valid = _upload(v, self.device)
+            arrays.append((_upload(data, self.device), valid))
+            dicts.append(col.dictionary)
+        int32_ok, ranges, uniques = _table_stats(
+            self.catalog, self.config, name, host)
+        # int32 shadow copies of zone-map-proven-narrow int64 columns:
+        # the int32 kernels read 4 B/row from them
+        narrow = {i: data.to(torch.int32)
+                  for i, (data, _v) in enumerate(arrays)
+                  if int32_ok[i] and data.dtype == torch.int64}
+        dense_idx = {i: _upload(d, self.device) for i, d in _dense_index(
+            host, self.catalog.get_stats(name) or {}, uniques).items()}
+        entry = {
+            "arrays": arrays,
+            "dicts": dicts,
+            "schema": host.schema,
+            "num_rows": host.num_rows,
+            "capacity": cap,
+            "int32_ok": int32_ok,
+            "ranges": ranges,
+            "uniques": uniques,
+            "narrow": narrow,
+            "dense_idx": dense_idx,
+        }
+        self._table_cache[name] = (ver, entry)
+        tensors = [t for pair in arrays for t in pair if t is not None] \
+            + list(narrow.values()) + list(dense_idx.values())
+        tracing.annotate(rows=host.num_rows, bytes=sum(
+            t.numel() * t.element_size() for t in tensors))
+        return entry
 
     # ------------------------------------------------------------------
     def _to_host(self, out, meta) -> ColumnBatch:
         schema: Schema = meta["out_schema"]
         n = int(out["count"])
-        cols = []
-        for (data, validity), dictionary, field in zip(
-                out["cols"], meta["out_dicts"], schema):
-            d = data[:n].cpu().numpy()
-            v = None if validity is None else validity[:n].cpu().numpy()
-            if field.dtype is DType.BOOL and d.dtype != np.bool_:
-                d = d.astype(np.bool_)
-            elif d.dtype == np.int32 and field.dtype.numpy_dtype == np.int64:
-                d = d.astype(np.int64)  # int32 key/min/max lanes widen here
-            if v is not None and v.all():
-                # all-valid masks drop like the oracle's (_maybe_validity):
-                # downstream formatters floatify int columns that carry ANY
-                # validity mask, drifting dtypes vs the CPU backend
-                v = None
-            cols.append(Column(d, v, dictionary))
+        nbytes = sum(n * (d.element_size() + (v is not None))
+                     for d, v in out["cols"])
+        with tracing.span(logger, "to_host", rows=n, bytes=nbytes):
+            cols = []
+            for (data, validity), dictionary, field in zip(
+                    out["cols"], meta["out_dicts"], schema):
+                d = data[:n].cpu().numpy()
+                v = None if validity is None else validity[:n].cpu().numpy()
+                if field.dtype is DType.BOOL and d.dtype != np.bool_:
+                    d = d.astype(np.bool_)
+                elif d.dtype == np.int32 \
+                        and field.dtype.numpy_dtype == np.int64:
+                    # int32 key/min/max lanes widen here
+                    d = d.astype(np.int64)
+                if v is not None and v.all():
+                    # all-valid masks drop like the oracle's
+                    # (_maybe_validity): downstream formatters floatify int
+                    # columns that carry ANY validity mask, drifting dtypes
+                    # vs the CPU backend
+                    v = None
+                cols.append(Column(d, v, dictionary))
         return ColumnBatch(schema, cols, n)
 
 
 # ---------------------------------------------------------------------------
 # the interpreter
 # ---------------------------------------------------------------------------
+
+#: the span each plan node runs under (``_Interpreter.exec``)
+_OPERATOR_SPANS = {
+    P.TpuTableScan: "scan", P.TpuFilter: "filter", P.TpuProjection: "project",
+    P.TpuHashJoin: "join", P.TpuAggregate: "aggregate", P.TpuSort: "sort",
+    P.TpuLimit: "limit", P.TpuDistinct: "distinct", P.TpuUnion: "union",
+}
 
 
 class _Interpreter:
@@ -428,6 +455,11 @@ class _Interpreter:
 
     # -- operators -----------------------------------------------------
     def exec(self, plan: P.PhysicalPlan, path: tuple) -> DevBatch:
+        """``plan``'s node, under a span named by its operator."""
+        with tracing.span(logger, _OPERATOR_SPANS.get(type(plan), "operator")):
+            return self._exec(plan, path)
+
+    def _exec(self, plan: P.PhysicalPlan, path: tuple) -> DevBatch:
         if isinstance(plan, P.TpuTableScan):
             return self._scan(plan)
         if isinstance(plan, P.TpuFilter):
@@ -548,6 +580,7 @@ class _Interpreter:
         if plan.strategy != "sort_merge" or plan.build_sorted_asc:
             lookup = self._try_lookup_join(plan, left, right, lkeys, rkeys)
             if lookup is not None:
+                tracing.annotate(route="lookup")
                 return lookup
 
         lkeys, rkeys = self._unified_key_tuples(plan, left, right, lkeys, rkeys)
@@ -577,6 +610,7 @@ class _Interpreter:
                 stream_cols, li, ri, out_valid, total, overflow = \
                     self._stream_join(plan, left, right, lc, li_inv, rc,
                                       ri_inv, capacity, fold_range)
+        tracing.annotate(route="sort_merge" if li is None else "stream")
         if li is None:
             li, ri, out_valid, total, overflow, cnt = join_ops.inner_join(
                 lkeys, left.row_valid, rkeys, right.row_valid, capacity,
@@ -945,8 +979,9 @@ class _Interpreter:
             if fast is not None:
                 return fast
 
-        cnt = self._join_match_counts(join, left, right)
-        participates = cnt > 0
+        with tracing.span(logger, "join", route="match_counts"):
+            cnt = self._join_match_counts(join, left, right)
+            participates = cnt > 0
 
         if plan.group_exprs:
             return self._grouped_join_aggregate(plan, path, left, cnt,
@@ -1084,49 +1119,51 @@ class _Interpreter:
                 self._lookup_range(join, right) is not None:
             return None  # pure key shapes: lookup counting is cheaper
 
-        lkeys = [self._key_of(k, left) for k in join.left_keys]
-        rkeys = [self._key_of(k, right) for k in join.right_keys]
-        fold_range = self._fold_range(join, lkeys, rkeys)
-        lkeys_t, rkeys_t = self._unified_key_tuples(join, left, right,
-                                                    lkeys, rkeys)
-        lcode, linv, rcode, rinv = join_ops._prepare_codes(
-            lkeys_t, left.row_valid, rkeys_t, right.row_valid, True)
-        nb = rcode.shape[0]
-        npr = lcode.shape[0]
+        with tracing.span(logger, "join", route="sorted_global"):
+            lkeys = [self._key_of(k, left) for k in join.left_keys]
+            rkeys = [self._key_of(k, right) for k in join.right_keys]
+            fold_range = self._fold_range(join, lkeys, rkeys)
+            lkeys_t, rkeys_t = self._unified_key_tuples(join, left, right,
+                                                        lkeys, rkeys)
+            lcode, linv, rcode, rinv = join_ops._prepare_codes(
+                lkeys_t, left.row_valid, rkeys_t, right.row_valid, True)
+            nb = rcode.shape[0]
+            npr = lcode.shape[0]
 
-        i32max = (1 << 31) - 8
-        lanes = []
-        lane_dicts = []  # a string lane's codes keep its column's dictionary
-        for sd, expr in payload_terms:
-            if sd == "probe":
-                expr_, batch = expr, left
-            else:
-                expr_, batch = shift_right(expr), right
-            data, valid, dictionary = self.eval_expr(expr_, batch)
-            lane_dicts.append(dictionary)
-            if valid is not None:
-                return None  # nullable term: the general paths handle it
-            rng = self._expr_range(expr_, batch)
-            if data.dtype == torch.float64:
-                dt = torch.float64
-            elif rng is not None and -i32max < int(rng[0]) \
-                    and int(rng[1]) < i32max:
-                dt = torch.int32
-            else:
-                dt = torch.int64
-            data = data.to(dt)
-            if sd == "probe":
-                lanes.append(torch.cat([torch.zeros(nb, dtype=dt,
-                                                    device=self.device),
-                                        data]))
-            else:
-                lanes.append(torch.cat([data, torch.zeros(
-                    npr, dtype=dt, device=self.device)]))
+            i32max = (1 << 31) - 8
+            lanes = []
+            # a string lane's codes keep its column's dictionary
+            lane_dicts = []
+            for sd, expr in payload_terms:
+                if sd == "probe":
+                    expr_, batch = expr, left
+                else:
+                    expr_, batch = shift_right(expr), right
+                data, valid, dictionary = self.eval_expr(expr_, batch)
+                lane_dicts.append(dictionary)
+                if valid is not None:
+                    return None  # nullable term: the general paths handle it
+                rng = self._expr_range(expr_, batch)
+                if data.dtype == torch.float64:
+                    dt = torch.float64
+                elif rng is not None and -i32max < int(rng[0]) \
+                        and int(rng[1]) < i32max:
+                    dt = torch.int32
+                else:
+                    dt = torch.int64
+                data = data.to(dt)
+                if sd == "probe":
+                    lanes.append(torch.cat([torch.zeros(nb, dtype=dt,
+                                                        device=self.device),
+                                            data]))
+                else:
+                    lanes.append(torch.cat([data, torch.zeros(
+                        npr, dtype=dt, device=self.device)]))
 
-        probe_ok, key_sorted, cnt_elem, build_ok, pcnt_elem, pay_s = \
-            join_ops.probe_counts_sorted(rcode, rinv, lcode, linv,
-                                         fold_range=fold_range,
-                                         payloads=tuple(lanes))
+            probe_ok, key_sorted, cnt_elem, build_ok, pcnt_elem, pay_s = \
+                join_ops.probe_counts_sorted(rcode, rinv, lcode, linv,
+                                             fold_range=fold_range,
+                                             payloads=tuple(lanes))
 
         # key-derived args evaluate on the sorted key lane, widened to the
         # column's logical dtype (expression arithmetic must not wrap)
@@ -1247,21 +1284,23 @@ class _Interpreter:
         if len(gk_lanes) + len(arg_lanes) > 4:
             return None
 
-        lkeys = [self._key_of(k, left) for k in join.left_keys]
-        rkeys = [self._key_of(k, right) for k in join.right_keys]
-        fold_range = self._fold_range(join, lkeys, rkeys)
-        lkeys_t, rkeys_t = self._unified_key_tuples(join, left, right,
-                                                    lkeys, rkeys)
-        lcode, linv, rcode, rinv = join_ops._prepare_codes(
-            lkeys_t, left.row_valid, rkeys_t, right.row_valid, True)
-        nb = rcode.shape[0]
-        payloads = tuple(
-            torch.cat([torch.zeros(nb, dtype=x.dtype, device=self.device), x])
-            for x in gk_lanes + arg_lanes)
-        probe_ok, _key_sorted, cnt_elem, _b_ok, _pcnt, pay_s = \
-            join_ops.probe_counts_sorted(rcode, rinv, lcode, linv,
-                                         fold_range=fold_range,
-                                         payloads=payloads)
+        with tracing.span(logger, "join", route="sorted_grouped"):
+            lkeys = [self._key_of(k, left) for k in join.left_keys]
+            rkeys = [self._key_of(k, right) for k in join.right_keys]
+            fold_range = self._fold_range(join, lkeys, rkeys)
+            lkeys_t, rkeys_t = self._unified_key_tuples(join, left, right,
+                                                        lkeys, rkeys)
+            lcode, linv, rcode, rinv = join_ops._prepare_codes(
+                lkeys_t, left.row_valid, rkeys_t, right.row_valid, True)
+            nb = rcode.shape[0]
+            payloads = tuple(
+                torch.cat([torch.zeros(nb, dtype=x.dtype, device=self.device),
+                           x])
+                for x in gk_lanes + arg_lanes)
+            probe_ok, _key_sorted, cnt_elem, _b_ok, _pcnt, pay_s = \
+                join_ops.probe_counts_sorted(rcode, rinv, lcode, linv,
+                                             fold_range=fold_range,
+                                             payloads=payloads)
         gk_s = pay_s[:len(gk_lanes)]
         arg_s = pay_s[len(gk_lanes):]
         n = cnt_elem.shape[0]
@@ -1516,10 +1555,12 @@ class _Interpreter:
     def _aggregate(self, plan: P.TpuAggregate, path) -> DevBatch:
         fast = self._try_filter_agg_kernel(plan, path)
         if fast is not None:
+            tracing.annotate(route="filter_agg")
             return fast
         if isinstance(plan.input, P.TpuHashJoin):
             fast = self._try_join_aggregate(plan, path)
             if fast is not None:
+                tracing.annotate(route="join_aggregate")
                 return fast
         batch = self.exec(plan.input, path + (0,))
         keys = []

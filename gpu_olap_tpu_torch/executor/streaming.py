@@ -51,6 +51,7 @@ from ..ops import join as join_ops
 from ..ops.dtypes import INT64_MIN, key_code, torch_dtype
 from ..plan import physical as P
 from ..utils.metrics import GLOBAL_METRICS
+from ..utils import tracing
 from ..utils.tracing import get_logger
 from .device import DevBatch, DevCol, _gather_col, _np_kind, _upload
 from .spill import SpillStore, choose_partitions, spill_hash
@@ -291,12 +292,11 @@ class StreamingAggregator:
     def execute(self, plan: P.PhysicalPlan) -> ColumnBatch:
         self._reset_stats()
         agg_root, has_above = split_above_aggregate(plan)
-        t0 = time.perf_counter()
-        batch = self._execute_aggregate(agg_root)
-        GLOBAL_METRICS.record_span(
-            "streamed_execute", time.perf_counter() - t0,
-            rows_in=self.last_stream_rows, rows_out=batch.num_rows,
-            bytes_accessed=self.last_link_bytes, device=self.device)
+        with tracing.span(logger, "streamed_execute"):
+            batch = self._execute_aggregate(agg_root)
+            tracing.annotate(rows_in=self.last_stream_rows,
+                             rows_out=batch.num_rows,
+                             link_bytes=self.last_link_bytes)
         if has_above:
             # post-aggregate operators run on the host over the small
             # group-result batch (same mechanism as the distributed path)

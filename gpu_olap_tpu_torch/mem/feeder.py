@@ -19,7 +19,6 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
-from ..utils.metrics import GLOBAL_METRICS
 
 
 def _tree_map(fn, tree):
@@ -129,10 +128,6 @@ def stream_reduce(chunks: Iterable, step: Callable, init, num_buffers: int = 2,
     host arrays must stay untouched until ``step`` has consumed them."""
     feeder = DeviceFeeder(num_buffers=num_buffers, device=device)
     state = init
-    nbytes = 0
     for dev_chunk in feeder.feed(chunks):
         state = step(state, dev_chunk)
-        for t in _tensors(dev_chunk):
-            nbytes += t.numel() * t.element_size()
-    GLOBAL_METRICS.bump("h2d_bytes", nbytes)
     return state
