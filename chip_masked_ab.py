@@ -19,7 +19,14 @@ both trees plan it.
 - ``distinct_where``: ``SELECT DISTINCT k`` on the same table under the
   50 % WHERE;
 - ``join_gb_min``: an inner join of 8M x 8M rows grouped by the probe key
-  with MIN of an int32 probe column (the grouped join aggregate).
+  with MIN of an int32 probe column (the grouped join aggregate);
+- ``op_*``: ``groupby_aggregate`` called directly on the general path (the
+  keys have null lanes, as a star join's dimension columns do) over 100M
+  rows: one key into about 4M groups or three into about 5.6M, with
+  COUNT(*), an integer SUM, a float SUM and AVG, under a mask that keeps
+  90 % or every row.  Its digest holds the group count and every output of
+  every group, floats bit for bit; it also gives the call's peak device
+  bytes above its inputs.
 
 Each tree runs in a child process of its own, with that tree first on
 ``sys.path``, in turns other, this, this, other, ``--rounds`` times.  A
@@ -50,6 +57,7 @@ import numpy as np
 SENTINEL = "##MASKED_AB##"
 GB_ROWS, GB_GROUPS = 100_000_000, 4_000_000
 JOIN_ROWS, JOIN_KEYS = 1 << 23, 1 << 22
+OP_MAX_GROUPS = 1 << 23
 
 QUERIES = {
     "gb_where_narrow": ("gb", "SELECT k, SUM(v) AS s, MIN(v) AS mn, "
@@ -60,6 +68,98 @@ QUERIES = {
     "join_gb_min": ("join", "SELECT l.k, MIN(l.w) AS mn FROM l JOIN r "
                     "ON l.k = r.k GROUP BY l.k"),
 }
+
+
+#: (key domains, share of rows the mask keeps) of each direct call
+OPS = {"op_1key_keep90": ((GB_GROUPS,), 0.9),
+       "op_1key_keep100": ((GB_GROUPS,), 1.0),
+       "op_3keys_keep90": ((1000, 100, 50), 0.9),
+       "op_3keys_keep100": ((1000, 100, 50), 1.0)}
+
+
+def _op_inputs(domains, share: float, scale: float, dev):
+    """One direct call's (keys, row_valid, specs), made on ``dev`` from a
+    fixed seed: each key int32 with 5 % nulls, ``v`` int32 under 1e6,
+    ``f`` float64 under 1e3."""
+    import torch
+
+    n = int(GB_ROWS * scale)
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rand():
+        return torch.rand(n, generator=g, device=dev)
+
+    keys = [(torch.randint(0, max(int(d * scale), 1), (n,), generator=g,
+                           device=dev, dtype=torch.int32), rand() < 0.05)
+            for d in domains]
+    v = torch.randint(0, 1_000_000, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    f = rand() * 1e3
+    rv = rand() < share
+    specs = [{"func": "count", "values": None, "valid": None,
+              "distinct": False, "acc_dtype": np.dtype(np.int64)},
+             {"func": "sum", "values": v, "valid": None, "distinct": False,
+              "acc_dtype": np.dtype(np.int64), "np_kind": "i",
+              "int32_ok": True, "arg_id": "v"},
+             {"func": "sum", "values": f, "valid": None, "distinct": False,
+              "acc_dtype": np.dtype(np.float64), "np_kind": "f",
+              "arg_id": "f"},
+             {"func": "avg", "values": f, "valid": None, "distinct": False,
+              "acc_dtype": np.dtype(np.float64), "np_kind": "f",
+              "arg_id": "f"}]
+    return keys, rv, specs
+
+
+def _op_digest(out) -> str:
+    """The group count and each output of every group, bit for bit."""
+    codes, results, n_groups, overflow = out
+    ng = int(n_groups)
+    h = hashlib.sha256(f"{ng} {bool(overflow)}".encode())
+    for data, valid in list(codes) + list(results):
+        for t in (data, valid):
+            if t is not None:
+                h.update(t[:ng].cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _ops(device: str, reps: int, scale: float) -> dict:
+    import torch
+
+    from gpu_olap_tpu_torch.ops.aggregate import groupby_aggregate
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    out = {}
+    for name, (domains, share) in OPS.items():
+        keys, rv, specs = _op_inputs(domains, share, scale, dev)
+
+        def call():
+            return groupby_aggregate(keys, rv, specs, OP_MAX_GROUPS,
+                                     device=dev)
+
+        res = call()  # warm
+        walls = []
+        for _ in range(reps):
+            if cuda:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = call()
+            if cuda:
+                torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"backend": "torch-cuda" if cuda else "torch-cpu",
+                     "ms_median": statistics.median(walls),
+                     "ms_min": min(walls),
+                     "peak_bytes_above_inputs":
+                         torch.cuda.max_memory_allocated() - base
+                         if cuda else None,
+                     "n_groups": int(res[2]), "digest": _op_digest(res)}
+        del keys, rv, specs, res
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
 
 
 def _tables(scale: float) -> dict:
@@ -132,6 +232,7 @@ def _child(tree: str, device: str, reps: int, scale: float) -> dict:
         del eng
         if cuda:
             torch.cuda.empty_cache()
+    out.update(_ops(device, reps, scale))
     return out
 
 
@@ -185,7 +286,7 @@ def main() -> int:
             print(json.dumps({"round": rnd, "tree": side, **res}))
     digests = {(q, r[q]["digest"]) for side in runs for r in runs[side]
                for q in r}
-    if len(digests) != len(QUERIES):
+    if len(digests) != len(QUERIES) + len(OPS):
         print(f"answers differ between runs: {sorted(digests)}",
               file=sys.stderr)
         return 1
@@ -196,7 +297,7 @@ def main() -> int:
             print(f"not on torch-cuda: {bad}", file=sys.stderr)
             return 1
     summary = {}
-    for q in QUERIES:
+    for q in [*QUERIES, *OPS]:
         med = {side: statistics.median(r[q]["ms_median"] for r in runs[side])
                for side in runs}
         # pair each round's two runs of a tree: other, this, this, other
@@ -204,14 +305,12 @@ def main() -> int:
                 - runs["other"][i][q]["ms_median"]
                 for i in range(len(runs["this"]))]
         summary[q] = {"other_ms": med["other"], "this_ms": med["this"],
-                      "gap_ms_median": statistics.median(gaps),
-                      "this_seg_agg_launches":
-                          runs["this"][0][q]["seg_agg_launches"],
-                      "other_seg_agg_launches":
-                          runs["other"][0][q]["seg_agg_launches"],
-                      "this_seg_agg_path": runs["this"][0][q]["seg_agg_path"],
-                      "other_seg_agg_path":
-                          runs["other"][0][q]["seg_agg_path"]}
+                      "gap_ms_median": statistics.median(gaps)}
+        for side in runs:
+            for k in ("seg_agg_launches", "seg_agg_path",
+                      "peak_bytes_above_inputs"):
+                if k in runs[side][0][q]:
+                    summary[q][f"{side}_{k}"] = runs[side][0][q][k]
     print(f"card: {_card()}")
     print(json.dumps({"masked_ab": summary, "rounds": args.rounds,
                       "reps": args.reps, "scale": args.scale,

@@ -12,8 +12,9 @@ Port of ``gpu_olap_tpu/ops/aggregate.py`` on torch tensors:
    (keys, value) sort; further MIN/MAX arguments take a segmented reduction;
 5. group key outputs gathered at run starts.
 
-The hot shape (one null-free int32 key, aggregates that ride the sort) takes
-the ``seg_agg`` kernel after the sort (:func:`_maybe_seg_agg_path`).
+A row mask's kept rows are gathered before any sort.  The hot shape (one
+null-free int32 key, aggregates that ride the sort) takes the ``seg_agg``
+kernel after the sort (:func:`_maybe_seg_agg_path`).
 
 Outputs are padded to ``max_groups`` with a returned group count, so the
 executor's overflow -> regrow protocol is the JAX engine's.  Torch has native
@@ -30,6 +31,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing
 from ..utils.metrics import GLOBAL_METRICS
 from .dtypes import key_code, key_fill, torch_dtype
 from .sort import lexsort
@@ -150,10 +152,9 @@ def groupby_aggregate(
     """Grouped aggregation over padded columns.
 
     ``keys`` entries are (code, null_flags); null_flags may be None when the
-    key is statically null-free.  Invalid rows (``row_valid`` False) fold
-    into the first sort operand and sort after every valid row; the
-    ``seg_agg`` path instead sorts only the valid rows, gathered first (one
-    host sync for their count), where the mask is the only extra operand.
+    key is statically null-free.  With a ``row_valid`` mask the rows it
+    keeps are gathered first, in their order (one host sync for their
+    count), and every sort runs over them alone.
 
     ``aggs`` entries: {func, values (tensor or None for count(*)),
     valid (tensor|None), distinct (bool), acc_dtype (np dtype), np_kind,
@@ -173,36 +174,25 @@ def groupby_aggregate(
     if not keys:
         return _global_aggregate(aggs, row_valid, n, dev)
 
-    arange32 = torch.arange(n, dtype=torch.int32, device=dev)
-    inv = None if row_valid is None else (~row_valid).to(torch.int32)
+    if row_valid is not None:
+        rows = torch.nonzero(row_valid).squeeze(1)
+        GLOBAL_METRICS.bump("torch_groupby_compact")
+        GLOBAL_METRICS.bump("torch_groupby_rows_in", n)
+        GLOBAL_METRICS.bump("torch_groupby_rows_kept", rows.numel())
+        tracing.annotate(rows_in=n, rows_kept=rows.numel())
+        keys, aggs = _take_rows(keys, aggs, rows)
+        n = rows.numel()
 
-    # ---- key operands: fold row validity into the first null flag ----
-    k0_code, k0_null = keys[0]
-    k0n = None if k0_null is None else k0_null.to(torch.int32)
-    if inv is not None and k0n is not None:
-        # invalid rows (2, 3) sort after null-key rows (1) after plain rows (0)
-        first, inv_thr, k0_in_first = inv * 2 + k0n, 2, True
-    elif inv is not None:
-        first, inv_thr, k0_in_first = inv, 1, False
-    elif k0n is not None:
-        first, inv_thr, k0_in_first = k0n, None, True
-    else:
-        first, inv_thr, k0_in_first = None, None, False
-
-    key_ops: List = [] if first is None else [first]
-    key_slots = []
-    key_ops.append(k0_code)
-    key_slots.append({"code": len(key_ops) - 1,
-                      "null": 0 if k0_in_first else None,
-                      "in_first": k0_in_first})
-    for code, null in keys[1:]:
+    # ---- key operands: each key's null flag sorts before its code ----
+    key_ops: List = []
+    key_slots = []  # (code slot, null slot or None) per key
+    for code, null in keys:
         ns = None
         if null is not None:
             key_ops.append(null.to(torch.int32))
             ns = len(key_ops) - 1
         key_ops.append(code)
-        key_slots.append({"code": len(key_ops) - 1, "null": ns,
-                          "in_first": False})
+        key_slots.append((len(key_ops) - 1, ns))
 
     # ---- aggregate routing: primary key-ride / payload ride / fallback ----
     primary_spec = next(
@@ -306,61 +296,45 @@ def groupby_aggregate(
         need_perm = True
         plans.append(("fallback", None))
 
-    seg_keys, keep = key_ops, None
-    if inv is not None and k0n is None:
-        # the row mask is the first operand alone: drop it, keep the rows
-        seg_keys, keep = key_ops[1:], row_valid
-    seg = _maybe_seg_agg_path(seg_keys, ride_ops, ride_null_slot, payloads,
+    if n == 0:
+        return _no_groups(keys, aggs, plans, ride_ops, ride_null_slot,
+                          max_groups, dev)
+    seg = _maybe_seg_agg_path(key_ops, ride_ops, ride_null_slot, payloads,
                               need_perm, plans, aggs, n, max_groups,
-                              allow_kernel, keep)
+                              allow_kernel)
     if seg is not None:
         return seg
 
     operands = key_ops + ride_ops + payloads
     if need_perm:
-        operands = operands + [arange32]
+        operands = operands + [torch.arange(n, dtype=torch.int32, device=dev)]
     num_keys = len(key_ops) + len(ride_ops)
     sorted_ops = lexsort(operands, num_keys)
 
-    first_s = sorted_ops[0] if first is not None else None
-    if inv_thr is not None:
-        nvalid = n - int((first_s >= inv_thr).sum())
-        in_prefix = arange32 < nvalid
-    else:
-        in_prefix = None
-
-    diff = torch.zeros(n, dtype=torch.bool, device=dev)
+    newflag = torch.zeros(n, dtype=torch.bool, device=dev)
     for slot in range(len(key_ops)):
-        diff = diff | _adjacent_diff(sorted_ops[slot])
-    newflag = diff if in_prefix is None else (diff & in_prefix)
+        newflag = newflag | _adjacent_diff(sorted_ops[slot])
 
     gid_raw = torch.cumsum(newflag.to(torch.int32), 0, dtype=torch.int32) - 1
     n_groups = newflag.sum(dtype=torch.int64)
     overflow = n_groups > max_groups
     gid = torch.clamp(gid_raw, 0, max_groups)
-    if in_prefix is not None:
-        gid = torch.where(in_prefix, gid, max_groups)
 
-    nval = nvalid if inv_thr is not None else n
-    starts, ends, exists = _dense_boundaries(newflag, n_groups, nval,
+    starts, ends, exists = _dense_boundaries(newflag, n_groups, n,
                                              max_groups)
     sizes64 = torch.where(exists, (ends - starts + 1).to(torch.int64), 0)
     safe_start = torch.clamp(starts, 0, n - 1)
 
     # group key outputs: gather the sorted key at each run start
     group_codes = []
-    for ks in key_slots:
-        code_s = sorted_ops[ks["code"]]
+    for code_slot, null_slot in key_slots:
+        code_s = sorted_ops[code_slot]
         out_code = torch.where(exists, code_s[safe_start],
                                key_fill(code_s.dtype))
-        if ks["in_first"]:
-            nf = (first_s[safe_start] & 1) == 1
-        elif ks["null"] is not None:
-            nf = sorted_ops[ks["null"]][safe_start] > 0
-        else:
-            nf = None  # statically null-free key: no flag materialized
-        group_codes.append((
-            out_code, None if nf is None else (exists & nf)))
+        # statically null-free key: no flag materialized
+        nf = (None if null_slot is None
+              else exists & (sorted_ops[null_slot][safe_start] > 0))
+        group_codes.append((out_code, nf))
 
     # primary key-ride state
     pv_code_s = pv_null_s = ride_cnt = None
@@ -400,8 +374,7 @@ def groupby_aggregate(
         if kind == "size":
             results.append((sizes64, None))
         elif kind == "distinct":
-            results.append(_distinct_agg(spec, key_ops, inv_thr, max_groups,
-                                         n))
+            results.append(_distinct_agg(spec, key_ops, max_groups, n))
         elif kind == "primary":
             func = spec["func"]
             # null-free argument (no ride null lane): every output group has
@@ -455,18 +428,16 @@ def groupby_aggregate(
                                             0.0), has))
         else:  # fallback: permutation-based segmented min/max
             perm = sorted_ops[-1]
-            results.append(_agg_one_fallback(spec, perm, gid, in_prefix,
-                                             starts, ends, n, max_groups))
+            results.append(_agg_one_fallback(spec, perm, gid, starts, ends,
+                                             n, max_groups))
     return group_codes, results, n_groups, overflow
 
 
 def _maybe_seg_agg_path(key_ops, ride_ops, ride_null_slot, payloads,
                         need_perm, plans, aggs, n, max_groups: int,
-                        allow_kernel: bool, keep=None):
+                        allow_kernel: bool):
     """The ``seg_agg`` kernel after the sort, for the hot shape: ONE
-    null-free int32 group key over rows that are all valid (a row mask
-    would be a second sort operand; ``keep``, a bool mask, gathers the
-    rows it keeps before the sort) and aggregates that all ride the sort:
+    null-free int32 group key and aggregates that all ride the sort:
     COUNT(*), plus
     SUM/MIN/MAX/AVG/COUNT over one null-free int32 argument.
 
@@ -504,13 +475,6 @@ def _maybe_seg_agg_path(key_ops, ride_ops, ride_null_slot, payloads,
         val_lane = None
     else:
         return None
-    if keep is not None:
-        rows = torch.nonzero(keep).squeeze(1)
-        if rows.numel() < MIN_ROWS:
-            return None
-        k0 = k0[rows]
-        val_lane = None if val_lane is None else val_lane[rows]
-
     if val_lane is None:
         (sk,) = lexsort([k0], 1)
         sv = sk
@@ -556,6 +520,53 @@ def _maybe_seg_agg_path(key_ops, ride_ops, ride_null_slot, payloads,
     return group_codes, results, n_groups, overflow
 
 
+def _take_rows(keys, aggs, rows):
+    """``keys`` and ``aggs`` with each key code, null flag, aggregate value
+    and validity at ``rows``; a tensor several operands share is gathered
+    once."""
+    taken = {}
+
+    def take(x):
+        if x is None:
+            return None
+        if id(x) not in taken:
+            taken[id(x)] = x[rows]
+        return taken[id(x)]
+
+    return ([(take(code), take(null)) for code, null in keys],
+            [dict(spec, values=take(spec.get("values")),
+                  valid=take(spec.get("valid"))) for spec in aggs])
+
+
+def _no_groups(keys, aggs, plans, ride_ops, ride_null_slot, max_groups: int,
+               dev):
+    """The result of no rows: no group and every slot padded, each output
+    in the dtype and with the validity lane the general path gives it."""
+    none = torch.zeros(max_groups, dtype=torch.bool, device=dev)
+    group_codes = [(torch.full((max_groups,), key_fill(code.dtype),
+                               dtype=code.dtype, device=dev),
+                    None if null is None else none) for code, null in keys]
+    results = []
+    for spec, (kind, _) in zip(aggs, plans):
+        func, acc = spec["func"], torch_dtype(spec["acc_dtype"])
+        if func == "count":
+            dtype, has = torch.int64, False
+        elif kind == "primary":
+            dtype, has = acc, ride_null_slot is not None
+            if (func in ("min", "max") and acc == torch.int64
+                    and ride_ops[-1].dtype == torch.int32):
+                dtype = torch.int32  # int32-narrowed values stay int32
+        else:
+            dtype = torch.float64 if func == "avg" else acc
+            has = (_arg_nullable(spec) if kind == "distinct"
+                   else spec.get("valid") is not None)
+        results.append((torch.zeros(max_groups, dtype=dtype, device=dev),
+                        none if has else None))
+    return (group_codes, results, torch.zeros((), dtype=torch.int64,
+                                              device=dev),
+            torch.zeros((), dtype=torch.bool, device=dev))
+
+
 def _dense_boundaries(newflag, n_groups, nval: int, max_groups: int):
     """Per-group [start, end] run positions from the run-start flags.
 
@@ -590,8 +601,7 @@ def _find_payload(payload_meta, kind, spec):
     return None
 
 
-def _agg_one_fallback(spec, perm, gid, in_prefix, starts, ends, n,
-                      max_groups):
+def _agg_one_fallback(spec, perm, gid, starts, ends, n, max_groups):
     """MIN/MAX over a non-primary argument: gather by the sort permutation and
     reduce per group (rare: needs two distinct min/max argument columns)."""
     func = spec["func"]
@@ -600,11 +610,8 @@ def _agg_one_fallback(spec, perm, gid, in_prefix, starts, ends, n,
     acc = torch_dtype(spec["acc_dtype"])
 
     vals = values[perm]
-    if in_prefix is None:
-        v_valid = (torch.ones(n, dtype=torch.bool, device=vals.device)
-                   if valid is None else valid[perm])
-    else:
-        v_valid = in_prefix if valid is None else (valid[perm] & in_prefix)
+    v_valid = (torch.ones(n, dtype=torch.bool, device=vals.device)
+               if valid is None else valid[perm])
 
     if acc.is_floating_point:
         ident = float("inf") if func == "min" else float("-inf")
@@ -626,7 +633,7 @@ def _agg_one_fallback(spec, perm, gid, in_prefix, starts, ends, n,
     return torch.where(has_any, out, 0), has_any
 
 
-def _distinct_agg(spec, key_ops, inv_thr, max_groups, n):
+def _distinct_agg(spec, key_ops, max_groups, n):
     """COUNT/SUM/AVG(DISTINCT x): secondary sort ordered by (group keys, x),
     distinct flags from adjacency; counts as cumsum + boundary diff.  SUM/AVG
     carry the raw value as a sort payload and reduce only first
@@ -644,26 +651,15 @@ def _distinct_agg(spec, key_ops, inv_thr, max_groups, n):
         ops = ops + [values.to(torch_dtype(pay_dtype))]
     num_keys = len(ops) - (1 if need_payload else 0)
     sorted2 = lexsort(ops, num_keys)
-    arange32 = torch.arange(n, dtype=torch.int32, device=dev)
-    if inv_thr is not None:
-        nval2 = n - int((sorted2[0] >= inv_thr).sum())
-        in_pref2 = arange32 < nval2
-    else:
-        in_pref2 = None
-        nval2 = n
     key_end = len(key_ops)
-    diff = torch.zeros(n, dtype=torch.bool, device=dev)
+    newflag2 = torch.zeros(n, dtype=torch.bool, device=dev)
     for op in sorted2[:key_end]:
-        diff = diff | _adjacent_diff(op)
-    newflag2 = diff if in_pref2 is None else (diff & in_pref2)
+        newflag2 = newflag2 | _adjacent_diff(op)
     n_groups2 = newflag2.sum(dtype=torch.int64)
-    starts2, ends2, _ = _dense_boundaries(newflag2, n_groups2, nval2,
-                                          max_groups)
+    starts2, ends2, _ = _dense_boundaries(newflag2, n_groups2, n, max_groups)
     null_s = sorted2[key_end] if nullable else None
     vcode_s = sorted2[key_end + (1 if nullable else 0)]
     distinct_new = newflag2 | _adjacent_diff(vcode_s)
-    if in_pref2 is not None:
-        distinct_new = distinct_new & in_pref2
     if nullable:
         distinct_new = distinct_new & (null_s == 0)
     cnt = _cnt_by_boundary(distinct_new, starts2, ends2)

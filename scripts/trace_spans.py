@@ -15,7 +15,9 @@ seconds by kind (every device event but the user annotations) beside the
 benchmark's own (its name filter), device and idle seconds by program span
 (``olapbench/core/spans.py``), the unattributed share, the ten longest
 gaps, per query the median device ms of ``join``, ``aggregate`` and
-``filter`` spans, the ``to_host`` span's median host ms, the regrows.
+``filter`` spans, the ``to_host`` span's median host ms, the regrows, the
+window's GROUP BY counters and, with the recorder on, per query of the mix
+the rows its masked GROUP BYs were handed and kept.
 """
 
 import time
@@ -38,6 +40,10 @@ sys.path.insert(0, str(ROOT))
 from olapbench.core import env  # noqa: E402
 
 env.use_checkout_caches(ROOT)
+
+
+COUNTERS = ("torch_groupby_compact", "torch_groupby_rows_in",
+            "torch_groupby_rows_kept", "torch_seg_agg_path")
 
 
 def _median(xs):
@@ -72,10 +78,13 @@ def window(bench, cell, seconds, mode, keep, spans):
     from gpu_olap_tpu_torch.utils import tracing
     from gpu_olap_tpu_torch.utils.metrics import GLOBAL_METRICS
 
-    regrows0 = GLOBAL_METRICS.snapshot().get("regrows", 0)
+    before = GLOBAL_METRICS.snapshot()
     ctx = tracing.record() if mode == "on" else contextlib.nullcontext()
     with ctx as rec:
         w = bench.window(cell, seconds, trace=True)
+    after = GLOBAL_METRICS.snapshot()
+    counted = {k: after.get(k, 0) - before.get(k, 0)
+               for k in ("regrows", *COUNTERS)}
     t0 = time.monotonic()
     events = spans.events_of(keep.last._prof)
     keep.last = None
@@ -103,13 +112,25 @@ def window(bench, cell, seconds, mode, keep, spans):
         "ops_ms": {n: spans.median_ms(s, n)
                    for n in ("join", "aggregate", "filter")},
         "host_ms": _median(host_ms),
-        "regrows": GLOBAL_METRICS.snapshot().get("regrows", 0) - regrows0,
+        "regrows": counted.pop("regrows"),
+        "counters": counted,
         "links": _links(events, att["work"], att["owners"], spans),
     }
     if rec is not None:
         line["to_host_ms"] = _median([x.seconds * 1e3 for x in rec.spans
                                       if x.name == "to_host"])
         line["spans"] = len(rec.spans)
+        # one client: the window's queries in the order of their ids
+        name_of = dict(zip(sorted(x.query_id for x in rec.spans
+                                  if x.name == "query"),
+                           (q.name for q in w.queries)))
+        kept = collections.defaultdict(lambda: [0, 0])
+        for x in rec.spans:
+            if "rows_kept" in x.fields:
+                k = kept[name_of.get(x.query_id)]
+                k[0] += x.fields["rows_in"]
+                k[1] += x.fields["rows_kept"]
+        line["rows_in_kept_by_query"] = dict(sorted(kept.items()))
     line["read_s"] = time.monotonic() - t0
     return line
 

@@ -287,7 +287,45 @@ def _agg_inputs(case, rng):
         specs = [("sum", v, None, False), ("min", v, None, False),
                  ("count", None, None, False)]
         return [(a, None), (b, None)], None, specs, 64, n - 1000
+    if case in MASKED_CASES:
+        # three keys with null lanes, as a star join's dimension columns
+        # carry them; every routing of an aggregate: COUNT(*), COUNT(x),
+        # integer and float SUM, AVG, the primary MIN and what rides it, a
+        # fallback MAX, COUNT and SUM DISTINCT
+        k1 = rng.integers(-30, 30, n)
+        k2 = rng.integers(0, 4, n).astype(np.int32)
+        k3 = rng.choice([-1.5, 0.0, 2.25], n)
+        i = rng.integers(-1000, 1000, n)
+        iv = rng.random(n) < 0.8
+        f = _floats(rng, n)
+        fv = ~np.isnan(f) & (rng.random(n) < 0.9)
+        w = rng.integers(0, 50, n)
+        rv = rng.random(n) < MASKED_CASES[case]
+        rv[n // 3] |= case == "masked_one_row"
+        specs = [("count", None, None, False), ("count", f, fv, False),
+                 ("sum", i, iv, False), ("sum", f, fv, False),
+                 ("avg", f, fv, False), ("min", w, None, False),
+                 ("avg", w, None, False), ("max", f, fv, False),
+                 ("count", w, None, True), ("sum", i, iv, True)]
+        keys = [(k1, rng.random(n) < 0.05), (k2, rng.random(n) < 0.1),
+                (k3, rng.random(n) < 0.05)]
+        return keys, rv, specs, 2048, None
+    if case in ("seg_masked_sparse", "seg_masked_few"):
+        # the seg_agg shape under a mask that keeps more (sparse) or fewer
+        # (few) rows than the kernel's MIN_ROWS
+        n = 65536 if case == "seg_masked_sparse" else n
+        k = rng.integers(0, 700, n).astype(np.int32)
+        v = rng.integers(-100_000, 100_000, n)
+        rv = rng.random(n) < 0.05
+        specs = [("sum", v, None, False), ("count", None, None, False)]
+        return [(k, None)], rv, specs, 1024, None
     raise KeyError(case)
+
+
+#: masked cases of the general path, each with the share of rows its mask
+#: keeps at random (``masked_one_row`` keeps the one row ``n // 3``)
+MASKED_CASES = {"masked_sparse": 0.005, "masked_no_row": 0.0,
+                "masked_one_row": 0.0, "masked_dense": 0.99}
 
 
 _ACC = {"count": np.dtype(np.int64), "avg": np.dtype(np.float64)}
@@ -335,7 +373,8 @@ def _run_both(case, allow_kernel):
 
 @pytest.mark.parametrize("case", ["seg_ride", "seg_payload", "seg_count_only",
                                   "seg_overflow", "general_nulls_mask",
-                                  "multi_key_prefix"])
+                                  "multi_key_prefix", *MASKED_CASES,
+                                  "seg_masked_sparse", "seg_masked_few"])
 @pytest.mark.parametrize("allow_kernel", [True, False])
 def test_groupby_aggregate_matches_jax(case, allow_kernel, interpret_mode):
     (jcodes, jres, jng, jovf), (tcodes, tres, tng, tovf), mg = \
@@ -406,6 +445,39 @@ def test_seg_agg_path_engages_on_hot_shapes():
             [(torch.from_numpy(c), None) for c, _ in keys], None,
             _specs_for(specs, torch.from_numpy, True), mg, device=CPU)
         assert GLOBAL_METRICS.counters.get("torch_seg_agg_path", 0) > before
+
+
+@pytest.mark.parametrize("case, seg_agg", [
+    ("masked_sparse", 0), ("masked_no_row", 0), ("seg_masked_sparse", 1),
+    ("seg_masked_few", 0), ("seg_ride", 1)])
+def test_groupby_compaction_counts_rows(case, seg_agg):
+    """A masked call counts itself, the rows it was handed and the rows its
+    mask kept, and writes both on the open span; a call without a mask
+    counts none of them.  The seg_agg path takes the kept rows alone."""
+    from gpu_olap_tpu_torch.utils import tracing
+    from gpu_olap_tpu_torch.utils.metrics import GLOBAL_METRICS
+
+    names = ("torch_groupby_compact", "torch_groupby_rows_in",
+             "torch_groupby_rows_kept", "torch_seg_agg_path")
+    keys, rv, specs, mg, _ = _agg_inputs(case, np.random.default_rng(8))
+    before = GLOBAL_METRICS.snapshot()
+    with tracing.record() as rec:
+        with tracing.span(tracing.get_logger(__name__), "aggregate"):
+            tagg.groupby_aggregate(
+                [(torch.from_numpy(c), None if m is None
+                  else torch.from_numpy(m)) for c, m in keys],
+                None if rv is None else torch.from_numpy(rv),
+                _specs_for(specs, torch.from_numpy, True), mg, device=CPU)
+    after = GLOBAL_METRICS.snapshot()
+    got = [after.get(k, 0) - before.get(k, 0) for k in names]
+    (span,) = rec.spans
+    if rv is None:
+        assert got == [0, 0, 0, seg_agg]
+        assert "rows_in" not in span.fields
+        return
+    n, kept = len(rv), int(rv.sum())
+    assert got == [1, n, kept, seg_agg]
+    assert span.fields == {"rows_in": n, "rows_kept": kept}
 
 
 @pytest.mark.parametrize("masked", [False, True])
