@@ -574,13 +574,20 @@ class _Interpreter:
         lkeys = [self._key_of(k, left) for k in plan.left_keys]
         rkeys = [self._key_of(k, right) for k in plan.right_keys]
         fold_range = self._fold_range(plan, lkeys, rkeys)
-        # expansion-free lookup join: unique, range-bounded build key.  An
+        # expansion-free lookup join: unique, range-bounded build key, the
+        # right side's, else the left side's (a dimension named first).  An
         # explicit "sort_merge" strategy forces the sorted probe; the
         # auto-selected pre-sorted strategy keeps the lookup join
         if plan.strategy != "sort_merge" or plan.build_sorted_asc:
             lookup = self._try_lookup_join(plan, left, right, lkeys, rkeys)
             if lookup is not None:
                 tracing.annotate(route="lookup")
+                return lookup
+            lookup = self._try_lookup_join(plan, left, right, lkeys, rkeys,
+                                           build="left")
+            if lookup is not None:
+                GLOBAL_METRICS.bump("torch_join_lookup_left")
+                tracing.annotate(route="lookup", build="left")
                 return lookup
 
         lkeys, rkeys = self._unified_key_tuples(plan, left, right, lkeys, rkeys)
@@ -698,75 +705,95 @@ class _Interpreter:
                 cols.append(_gather_col(c, ri, out_valid))
         return cols, li, ri, out_valid, res["total"], res["overflow"]
 
-    def _lookup_range(self, plan, right: DevBatch):
-        """Lookup-join eligibility: single int key, build side proven unique
-        with a stats-bounded range.  Returns (kmin, kmax) or None."""
+    @staticmethod
+    def _build_keys(plan, side: str):
+        """(build key, probe key) expressions with ``side`` as the build."""
+        if side == "right":
+            return plan.right_keys[0], plan.left_keys[0]
+        return plan.left_keys[0], plan.right_keys[0]
+
+    def _lookup_range(self, plan, build: DevBatch, side: str = "right"):
+        """Lookup-join eligibility: single int key, the ``side`` side's
+        proven unique with a stats-bounded range.  Returns (kmin, kmax) or
+        None."""
         if len(plan.left_keys) != 1:
             return None
-        rexpr = plan.right_keys[0]
-        if not isinstance(rexpr, P.ColumnRef):
+        bexpr, pexpr = self._build_keys(plan, side)
+        if not isinstance(bexpr, P.ColumnRef):
             return None
-        rcol = right.cols[rexpr.index]
-        rng = rcol.value_range
-        if not rcol.unique or rng is None:
+        bcol = build.cols[bexpr.index]
+        rng = bcol.value_range
+        if not bcol.unique or rng is None:
             return None
         span = int(rng[1]) - int(rng[0]) + 1
         if not (0 < span <= self.config.direct_join_max_range):
             return None
-        if plan.left_keys[0].dtype in (DType.FLOAT64, DType.STRING) or \
-                rexpr.dtype in (DType.FLOAT64, DType.STRING):
+        if pexpr.dtype in (DType.FLOAT64, DType.STRING) or \
+                bexpr.dtype in (DType.FLOAT64, DType.STRING):
             return None
         return (int(rng[0]), int(rng[1]))
 
-    def _cached_dense_index(self, plan, right: DevBatch):
-        """The table's persistent dense join index for the build key, when
-        the build side is an unfiltered scan.  JAX also accepts its static
-        scan-padding prefix (``prefix_rows``); the port's tables carry no
-        padding, so an unfiltered scan is exactly ``row_valid is None``."""
-        rexpr = plan.right_keys[0]
-        if not isinstance(rexpr, P.ColumnRef):
+    def _cached_dense_index(self, plan, build: DevBatch, side: str = "right"):
+        """The table's persistent dense join index for the ``side`` side's
+        key, when that side is an unfiltered scan.  JAX also accepts its
+        static scan-padding prefix (``prefix_rows``); the port's tables carry
+        no padding, so an unfiltered scan is exactly ``row_valid is None``."""
+        bexpr, _ = self._build_keys(plan, side)
+        if not isinstance(bexpr, P.ColumnRef):
             return None
-        rcol = right.cols[rexpr.index]
-        if rcol.source is None or right.row_valid is not None:
+        bcol = build.cols[bexpr.index]
+        if bcol.source is None or build.row_valid is not None:
             return None
-        tname, ti = rcol.source
+        tname, ti = bcol.source
         tbl = self.tables.get(tname)
         if tbl is None:
             return None
         return tbl["dense_idx"].get(ti)
 
     def _try_lookup_join(self, plan, left: DevBatch, right: DevBatch,
-                         lkeys, rkeys) -> Optional[DevBatch]:
-        if plan.join_type not in ("inner", "left"):
+                         lkeys, rkeys, build: str = "right"
+                         ) -> Optional[DevBatch]:
+        """The lookup join with the ``build`` side's unique key as the dense
+        table and the other side as the probe.  The output has the probe's
+        capacity and rows in their order: the probe's columns pass through
+        as they are (each probe row appears at most once), the build's are
+        gathered.  Inner joins, and the outer join that keeps every probe
+        row."""
+        if build == "right":
+            probe, bside, outer = left, right, "left"
+            pk, bk = lkeys[0], rkeys[0]
+        else:
+            probe, bside, outer = right, left, "right"
+            pk, bk = rkeys[0], lkeys[0]
+        if plan.join_type not in ("inner", outer):
             return None
-        rng = self._lookup_range(plan, right)
+        rng = self._lookup_range(plan, bside, build)
         if rng is None:
             return None
 
-        lk, rk = lkeys[0], rkeys[0]
-        rinv = rk["null"] if right.row_valid is None else (
-            rk["null"] | ~right.row_valid)
-        pinv = lk["null"] if left.row_valid is None else (
-            lk["null"] | ~left.row_valid)
-        dense_row = self._cached_dense_index(plan, right)
+        binv = bk["null"] if bside.row_valid is None else (
+            bk["null"] | ~bside.row_valid)
+        pinv = pk["null"] if probe.row_valid is None else (
+            pk["null"] | ~probe.row_valid)
+        dense_row = self._cached_dense_index(plan, bside, build)
         if dense_row is not None:
-            rel_c, inr = join_ops.dense_probe(rng[0], rng[1], lk["code"], pinv)
+            rel_c, inr = join_ops.dense_probe(rng[0], rng[1], pk["code"], pinv)
         else:
             dense_row, rel_c, inr = join_ops.lookup_slots(
-                rk["code"], rinv, rng[0], rng[1], lk["code"], pinv)
+                bk["code"], binv, rng[0], rng[1], pk["code"], pinv)
 
         # per-column dense VALUE tables (build-sized gathers) replace
         # per-probe-row gathers through dense_row.  A null-free int column
         # with zone-map stats gets a sentinel (range max + 1) in empty slots:
         # its one probe gather yields value AND matchedness
-        nb = right.capacity
+        nb = bside.capacity
         safe_dense = torch.clamp(dense_row, 0, nb - 1)
         slot_ok = dense_row >= 0
         # sentinel column: prefer a NON-key column (the key is rarely
         # referenced after the join)
-        key_ix = plan.right_keys[0].index
+        key_ix = self._build_keys(plan, build)[0].index
         sent_ix = None
-        for i, c in enumerate(right.cols):
+        for i, c in enumerate(bside.cols):
             if (c.validity is None and c.dictionary is None
                     and c.value_range is not None
                     and c.data.dtype == torch.int64
@@ -779,7 +806,7 @@ class _Interpreter:
 
         matched = None
         dense_vals = []
-        for i, c in enumerate(right.cols):
+        for i, c in enumerate(bside.cols):
             src = c.data
             if c.int32_ok and src.dtype == torch.int64:
                 src = c.as_int32()  # int32 value tables where zone maps allow
@@ -798,26 +825,29 @@ class _Interpreter:
         if matched is None:  # no sentinel-capable column: probe dense_row
             matched = inr & (dense_row[rel_c] >= 0)
 
-        nl = left.capacity
-        lvalid = left.row_valid if left.row_valid is not None else \
-            torch.ones(nl, dtype=torch.bool, device=self.device)
-        # inner: matched probe rows; left outer: every probe row survives
-        out_valid = lvalid & matched if plan.join_type == "inner" else lvalid
+        n = probe.capacity
+        pvalid = probe.row_valid if probe.row_valid is not None else \
+            torch.ones(n, dtype=torch.bool, device=self.device)
+        # inner: matched probe rows; outer: every probe row survives
+        out_valid = pvalid & matched if plan.join_type == "inner" else pvalid
 
-        cols = list(left.cols)
+        bcols = []
         for c, g, dv, dvalid in dense_vals:
             if g is None:
                 g = dv[rel_c]
             valid = matched if dvalid is None else (dvalid[rel_c] & matched)
-            cols.append(DevCol(g, valid, c.dictionary, c.int32_ok,
-                               c.value_range))
-        out = DevBatch(plan.schema, cols, nl, out_valid)
+            bcols.append(DevCol(g, valid, c.dictionary, c.int32_ok,
+                                c.value_range))
+        # the schema's order: the left side's columns, then the right's
+        cols = (list(probe.cols) + bcols if build == "right"
+                else bcols + list(probe.cols))
+        out = DevBatch(plan.schema, cols, n, out_valid)
         if plan.residual is not None:
             data, valid, _ = self.eval_expr(plan.residual, out)
             mask = filter_ops.combine_mask(out.row_valid, data, valid)
-            if plan.join_type == "left":
+            if plan.join_type == outer:
                 mask = mask | (~matched & out_valid)
-            out = DevBatch(plan.schema, cols, nl, mask)
+            out = DevBatch(plan.schema, cols, n, mask)
         return out
 
     def _key_of(self, expr: P.PhysExpr, batch: DevBatch):

@@ -16,8 +16,9 @@ benchmark's own (its name filter), device and idle seconds by program span
 (``olapbench/core/spans.py``), the unattributed share, the ten longest
 gaps, per query the median device ms of ``join``, ``aggregate`` and
 ``filter`` spans, the ``to_host`` span's median host ms, the regrows, the
-window's GROUP BY counters and, with the recorder on, per query of the mix
-the rows its masked GROUP BYs were handed and kept.
+window's GROUP BY and join-route counters (``torch_join_lookup_left``: the
+joins that built on their left side) and, with the recorder on, per query
+of the mix the rows its masked GROUP BYs were handed and kept.
 """
 
 import time
@@ -43,7 +44,8 @@ env.use_checkout_caches(ROOT)
 
 
 COUNTERS = ("torch_groupby_compact", "torch_groupby_rows_in",
-            "torch_groupby_rows_kept", "torch_seg_agg_path")
+            "torch_groupby_rows_kept", "torch_seg_agg_path",
+            "torch_join_lookup_left", "torch_join_stream_path")
 
 
 def _median(xs):

@@ -28,6 +28,8 @@ GROUPED = ["q2_1", "q2_2", "q2_3", "q3_1", "q3_2", "q3_3", "q3_4", "q4_1",
            "q4_2", "q4_3"]
 COUNTERS = ("torch_groupby_compact", "torch_groupby_rows_in",
             "torch_groupby_rows_kept")
+ROUTES = ("torch_join_lookup_left", "torch_join_stream_path",
+          "torch_groupby_rows_in")
 
 
 @pytest.fixture(scope="module")
@@ -44,10 +46,10 @@ def _draws(c, bench, q):
         yield traffic.draw(c.mix["params"][q], rng, bench.domains)
 
 
-def _run(ssb, q, p):
+def _run(ssb, q, p, counters=COUNTERS):
     """The program's answer to ``q`` with constants ``p``, held to the
-    reference's; returns the reference's row count and the counters'
-    increments."""
+    reference's; returns the reference's row count and the increments of
+    ``counters``."""
     from gpu_olap_tpu_torch.utils.metrics import GLOBAL_METRICS
 
     c, bench, view = ssb
@@ -62,7 +64,7 @@ def _run(ssb, q, p):
     assert why is None, (q, p, why)
     assert gap == 0.0, (q, p, gap)
     return (len(next(iter(want.values()))),
-            [after.get(k, 0) - before.get(k, 0) for k in COUNTERS])
+            [after.get(k, 0) - before.get(k, 0) for k in counters])
 
 
 @pytest.mark.parametrize("q", GROUPED)
@@ -73,6 +75,21 @@ def test_grouped_query_equals_the_reference(ssb, q):
         rows, (calls, rows_in, kept) = _run(ssb, q, next(draws))
         # one masked GROUP BY, which keeps at least a row of each group
         assert calls == 1 and rows <= kept < rows_in
+
+
+@pytest.mark.parametrize("q", GROUPED)
+def test_grouped_query_joins_by_lookup_over_the_fact_rows(ssb, q):
+    """Q3.x and Q4.x name a dimension first (``FROM customer JOIN
+    lineorder``): their first join looks the fact rows up in the
+    dimension's dense index, not a sort-merge of ``lineorder``, so the
+    GROUP BY sees ``lineorder``'s rows, not the stream join's doubled
+    capacity.  Q2.x names ``lineorder`` first and builds on the right."""
+    c, bench, _ = ssb
+    _rows, (left, stream, rows_in) = _run(ssb, q, next(_draws(c, bench, q)),
+                                          ROUTES)
+    assert left == (0 if q.startswith("q2") else 1)
+    assert stream == 0
+    assert rows_in == bench.tables.rows("lineorder") == 240_000
 
 
 def test_grouped_query_whose_mask_keeps_no_row(ssb):
