@@ -6,8 +6,8 @@ one NVIDIA GPU, every answer checked exactly against numpy.
     python3 bench_torch.py --micro
 
 Configs, in run order, with ``bench.py``'s seeds, SQL, sizes and engine
-settings (``max_groups=1 << 23``, ``min_shape_bucket=1 << 16``, the result
-cache off, the per-config ``join_expansion``):
+settings (``max_groups=1 << 23``, the result cache off, the per-config
+``join_expansion``; the port has no counterpart of ``min_shape_bucket``):
 
 - ``join``: 100M x 100M rows, keys in [0, 50M) (BASELINE config 3);
 - ``groupby``: 100M rows into 4M groups, SUM/MIN/MAX (config 2);
@@ -370,7 +370,7 @@ def make_engine(device, join_expansion: float = 1.25, **settings):
 
     return TorchOlapEngine(EngineConfig(
         backend="device", join_expansion=join_expansion, max_groups=1 << 23,
-        min_shape_bucket=1 << 16, enable_cache=False, **settings),
+        enable_cache=False, **settings),
         device=device)
 
 

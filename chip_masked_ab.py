@@ -204,7 +204,7 @@ def _child(tree: str, device: str, reps: int, scale: float) -> dict:
         # bench_torch.make_engine's settings
         eng = TorchOlapEngine(EngineConfig(
             backend="device", join_expansion=1.25, max_groups=1 << 23,
-            min_shape_bucket=1 << 16, enable_cache=False), device=device)
+            enable_cache=False), device=device)
         for name, cols in tables.items():
             eng.register(name, cols)
         for qname, (qgroup, sql) in QUERIES.items():

@@ -1389,8 +1389,8 @@ def _corpus_single(dev) -> list:
         for seed in range(C.N_QUERIES):
             t1, t2, sql = C.fuzz_case(seed, scale)
             rows[scale].append(len(t1["a"]))
-            eng = TorchOlapEngine(EngineConfig(min_shape_bucket=256,
-                                               enable_cache=False), device=dev)
+            eng = TorchOlapEngine(EngineConfig(enable_cache=False),
+                                  device=dev)
             eng.register("t1", t1)
             eng.register("t2", t2)
             b.check(eng, _oracle(eng), sql, f"scale {scale} seed {seed}",

@@ -284,8 +284,7 @@ def _scans(dev, card):
                  grids_in_trace={k[:100]: v for k, v in shapes.items()})
 
 
-BENCH_CFG = dict(max_groups=1 << 23, min_shape_bucket=1 << 16,
-                 enable_cache=False)
+BENCH_CFG = dict(max_groups=1 << 23, enable_cache=False)
 
 
 def main() -> int:

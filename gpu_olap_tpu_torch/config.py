@@ -1,20 +1,12 @@
-"""Engine configuration.
+"""Engine configuration: the options the port reads.
 
-The port's own copy of ``gpu_olap_tpu/config.py``: this package imports
-nothing of the JAX package, and ``tests/test_torch_standalone.py``
-holds the copy against the original.
-
-TPU-native analogue of the reference's ``EngineConfig``
-(``gpu-olap-core/src/lib.rs:20-43``): ``max_gpu_memory`` becomes ``max_hbm_bytes``,
-``num_streams`` becomes ``num_feed_buffers`` (double/multi-buffered host->device
-feeding slots), ``use_unified_memory`` becomes ``out_of_core`` (host-streamed scans),
-and ``batch_size`` / ``enable_cache`` keep their roles.  We add TPU-specific knobs:
-shape-bucketing policy (recompile avoidance), join/aggregate capacity policies, and
-mesh shape for multi-host execution.  ``from_kwargs`` takes the reference's
-names as aliases; the streamer's staging arena takes ``max_hbm_bytes`` as its
-byte limit.  ``out_of_core`` (``use_unified_memory``) is accepted and read by
-nothing, as in the JAX package: tables above ``table_cache_threshold_rows``
-stream whatever it says.
+The port's counterpart of ``gpu_olap_tpu/config.py`` (this package imports
+nothing of the JAX package), with the JAX package's names and defaults, so
+one set of options drives both engines.  It keeps only the options the port
+reads: it runs eagerly on tensors of data-dependent size, so JAX's
+shape-bucketing, float32, radix and mesh-axis options have no counterpart
+here.  ``from_kwargs`` takes the reference constructor's names
+(``gpu-olap-core/src/lib.rs:20-43``) as aliases.
 """
 
 from __future__ import annotations
@@ -28,7 +20,6 @@ class EngineConfig:
     # --- capacity / memory (slab-allocator analogue) ---
     max_hbm_bytes: int = 8 * 1024**3          # reference default: 8 GB (lib.rs:35)
     num_feed_buffers: int = 8                 # reference: num_streams = 8 (lib.rs:36)
-    out_of_core: bool = True                  # reference: use_unified_memory (lib.rs:37)
     batch_size: int = 1_000_000               # rows per streamed chunk (lib.rs:38)
     enable_cache: bool = True                 # compiled-plan cache (lib.rs:39)
 
@@ -42,11 +33,6 @@ class EngineConfig:
     # The fused post-sort GROUP BY kernel (csrc/seg_agg.cu): None = auto = ON
     # when ``use_pallas`` is; False forces the plain post-sort pipeline.
     use_pallas_seg_agg: Optional[bool] = None
-    prefer_float32: bool = False              # use f32 compute for float cols (TPU fast path)
-    # Static-shape bucketing: row counts are padded up to the next bucket so that
-    # recompiles are bounded (the kernel-cache analogue of codegen.rs:36-47).
-    shape_bucket_growth: float = 2.0
-    min_shape_bucket: int = 1024
 
     # Hash-aggregate: max distinct groups a single pass can produce (padded output).
     max_groups: int = 1 << 21                 # 2M groups
@@ -63,9 +49,6 @@ class EngineConfig:
     # Join strategy threshold: build sides <= this use broadcast join
     # (reference join_kernel.rs:71-77 uses 1M rows).
     broadcast_join_threshold: int = 1_000_000
-    # Radix partition fan-out for partitioned joins / shuffles (reference uses
-    # 8-bit radix -> 256 partitions, join_kernels.cuh:22-23).
-    radix_bits: int = 8
     # Direct-address join: when zone-map stats bound the build key range to at
     # most this many distinct slots, probe via a dense offset table (2 gathers
     # per probe row) instead of binary search.
@@ -74,15 +57,9 @@ class EngineConfig:
     # disables the lookup/direct fast paths; "broadcast_hash"/"radix_hash"
     # keep them (reference JoinStrategy surface, join_kernel.rs:3-18).
     join_strategy: Optional[str] = None
-    # Sorted-space join aggregation (round 5): global/grouped aggregates
-    # over inner joins reduce in merge-sorted key space without the
-    # probe-order restore sort.  None/True = on; False = keep the
-    # materialize/probe-order paths (A/B + escape hatch).
-    use_sorted_join_agg: Optional[bool] = None
 
     # --- distribution ---
     mesh_shape: Optional[Tuple[int, ...]] = None   # None = single device
-    mesh_axis_names: Tuple[str, ...] = ("hosts",)
 
     # --- catalog ---
     table_cache_threshold_rows: int = 10_000_000   # reference catalog.rs:50
@@ -97,8 +74,10 @@ class EngineConfig:
         alias = {
             "max_gpu_memory": "max_hbm_bytes",
             "num_streams": "num_feed_buffers",
-            "use_unified_memory": "out_of_core",
         }
+        # unified memory has nothing to switch: a table streams when it is
+        # above table_cache_threshold_rows
+        kwargs.pop("use_unified_memory", None)
         resolved = {}
         for key, value in kwargs.items():
             resolved[alias.get(key, key)] = value

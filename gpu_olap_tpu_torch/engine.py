@@ -296,8 +296,10 @@ class TorchOlapEngine:
 class GpuOlapEngine(TorchOlapEngine):
     """Binding-style constructor accepting the reference's kwargs
     (``gpu_olap_py.GpuOlapEngine(max_gpu_memory=..., num_streams=...,
-    use_unified_memory=...)``, README.md:260-270) and any ``EngineConfig``
-    field; ``device`` and ``mesh_devices`` go to ``TorchOlapEngine``."""
+    use_unified_memory=...)``, README.md:260-270) and any field of the
+    port's ``EngineConfig``; ``use_unified_memory`` is accepted and sets
+    nothing (see ``EngineConfig.from_kwargs``).  ``device`` and
+    ``mesh_devices`` go to ``TorchOlapEngine``."""
 
     def __init__(self, *, device="cuda",
                  mesh_devices: Optional[Sequence] = None, **kwargs):

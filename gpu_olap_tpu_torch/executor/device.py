@@ -983,31 +983,20 @@ class _Interpreter:
             if a.func not in ("sum", "count", "avg", "min", "max"):
                 return None
 
-        left = right = None
-        if not plan.group_exprs and self.config.use_sorted_join_agg \
-                is not False:
-            left = self.exec(join.left, path + (0, 0))
-            right = self.exec(join.right, path + (0, 1))
+        reads_build = any(
+            a.arg is not None
+            and any(i >= n_left_cols for i in _expr_col_indices(a.arg))
+            for a in plan.aggs)
+        if plan.group_exprs and reads_build:
+            return None
+        left = self.exec(join.left, path + (0, 0))
+        right = self.exec(join.right, path + (0, 1))
+        if not plan.group_exprs:
             fast = self._sorted_global_join_agg(plan, join, left, right)
             if fast is not None:
                 return fast
-
-        for a in plan.aggs:
-            if a.arg is not None and \
-                    any(i >= n_left_cols for i in _expr_col_indices(a.arg)):
+            if reads_build:
                 return None
-
-        if left is None:
-            left = self.exec(join.left, path + (0, 0))
-            right = self.exec(join.right, path + (0, 1))
-
-        if plan.group_exprs and self.config.use_sorted_join_agg is True:
-            # opt-in only (the JAX engine measured it slower than the
-            # probe-order path at bench-class shapes)
-            fast = self._sorted_grouped_join_agg(plan, join, left, right,
-                                                 path)
-            if fast is not None:
-                return fast
 
         with tracing.span(logger, "join", route="match_counts"):
             cnt = self._join_match_counts(join, left, right)
@@ -1251,176 +1240,13 @@ class _Interpreter:
         GLOBAL_METRICS.bump("torch_sorted_global_join_agg")
         return DevBatch(plan.schema, cols, 1, None)
 
-    def _sorted_grouped_join_agg(self, plan: P.TpuAggregate,
-                                 join: P.TpuHashJoin, left: DevBatch,
-                                 right: DevBatch, path) -> Optional[DevBatch]:
-        """GROUPED join aggregation in merge-sorted key space (opt-in):
-        group-key codes and aggregate arguments ride the tagged co-sort as
-        payload lanes, per-probe match counts come out in sorted order, and
-        the group-by runs over the merged-length lanes.  Eligible: single
-        int column join key, null-free non-string probe-side group keys and
-        arguments, at most 4 payload lanes."""
-        if len(join.left_keys) != 1:
-            return None
-        lk_expr = join.left_keys[0]
-        if not isinstance(lk_expr, P.ColumnRef) or \
-                _np_kind(lk_expr.dtype) != "i":
-            return None
-        n_left_cols = len(join.left.schema)
-        for g in plan.group_exprs:
-            if any(i >= n_left_cols for i in _expr_col_indices(g)):
-                return None
-            if g.dtype is DType.STRING or _np_kind(g.dtype) == "f":
-                return None
-        for a in plan.aggs:
-            if a.arg is None:
-                continue
-            if any(i >= n_left_cols for i in _expr_col_indices(a.arg)):
-                return None
-            if a.out_dtype is DType.STRING:
-                return None
-        if join.strategy != "sort_merge" and \
-                self._lookup_range(join, right) is not None:
-            return None  # unique build: lookup counting is cheaper
-
-        gk_lanes = []
-        for g in plan.group_exprs:
-            d, v, _dct = self.eval_expr(g, left)
-            if v is not None:
-                return None
-            code, _null = key_code(d, v, _np_kind(g.dtype))
-            if self._int32_ok(g, left) and code.dtype == torch.int64:
-                code = self._narrow32(g, left, d)
-            gk_lanes.append(code)
-        arg_ix: Dict = {}
-        arg_lanes = []
-        i32max = (1 << 31) - 8
-        for a in plan.aggs:
-            if a.arg is None or repr(a.arg) in arg_ix:
-                continue
-            d, v, _dct = self.eval_expr(a.arg, left)
-            if v is not None:
-                return None
-            rng = self._expr_range(a.arg, left)
-            if d.dtype == torch.float64:
-                dt = torch.float64
-            elif rng is not None and -i32max < int(rng[0]) \
-                    and int(rng[1]) < i32max:
-                dt = torch.int32
-            else:
-                dt = torch.int64
-            arg_ix[repr(a.arg)] = len(arg_lanes)
-            arg_lanes.append(d.to(dt))
-        if len(gk_lanes) + len(arg_lanes) > 4:
-            return None
-
-        with tracing.span(logger, "join", route="sorted_grouped"):
-            lkeys = [self._key_of(k, left) for k in join.left_keys]
-            rkeys = [self._key_of(k, right) for k in join.right_keys]
-            fold_range = self._fold_range(join, lkeys, rkeys)
-            lkeys_t, rkeys_t = self._unified_key_tuples(join, left, right,
-                                                        lkeys, rkeys)
-            lcode, linv, rcode, rinv = join_ops._prepare_codes(
-                lkeys_t, left.row_valid, rkeys_t, right.row_valid, True)
-            nb = rcode.shape[0]
-            payloads = tuple(
-                torch.cat([torch.zeros(nb, dtype=x.dtype, device=self.device),
-                           x])
-                for x in gk_lanes + arg_lanes)
-            probe_ok, _key_sorted, cnt_elem, _b_ok, _pcnt, pay_s = \
-                join_ops.probe_counts_sorted(rcode, rinv, lcode, linv,
-                                             fold_range=fold_range,
-                                             payloads=payloads)
-        gk_s = pay_s[:len(gk_lanes)]
-        arg_s = pay_s[len(gk_lanes):]
-        n = cnt_elem.shape[0]
-        cnt64 = cnt_elem.to(torch.int64)
-        participates = probe_ok & (cnt_elem > 0)
-
-        cap_key = ("agg", path)
-        max_groups = self.cap_override.get(
-            cap_key, min(self.config.max_groups, left.capacity))
-        self.meta["capacities"][cap_key] = max_groups
-
-        # JAX passes all-False null flags here (not None), so the group-by
-        # takes its general path; kept for the same route
-        keys = [(code, torch.zeros(n, dtype=torch.bool, device=self.device))
-                for code in gk_s]
-        key_meta = [(g.dtype, None) for g in plan.group_exprs]
-        star = {"func": "sum", "values": cnt64, "valid": None,
-                "distinct": False, "acc_dtype": np.int64, "np_kind": "i",
-                "arg_id": ("sj_star",)}
-
-        specs: List[dict] = []
-        post = []
-        for a in plan.aggs:
-            acc = a.out_dtype.numpy_dtype
-            if a.arg is None or a.func == "count":
-                # COUNT(*), and COUNT of a null-free argument: multiplicities
-                specs.append(dict(star))
-                post.append(("count", len(specs) - 1, None))
-                continue
-            lane = arg_s[arg_ix[repr(a.arg)]]
-            if a.func == "sum":
-                tacc = torch_dtype(acc)
-                specs.append({"func": "sum", "values": lane.to(tacc)
-                              * cnt64.to(tacc), "valid": None,
-                              "distinct": False, "acc_dtype": acc,
-                              "np_kind": _np_kind(a.arg.dtype),
-                              "arg_id": ("sj_sum", a.arg)})
-                post.append(("plain", len(specs) - 1, None))
-            elif a.func == "avg":
-                specs.append({"func": "sum", "values": lane.to(torch.float64)
-                              * cnt64.to(torch.float64), "valid": None,
-                              "distinct": False, "acc_dtype": np.float64,
-                              "np_kind": "f", "arg_id": ("sj_avg", a.arg)})
-                specs.append(dict(star))
-                post.append(("avg", len(specs) - 2, len(specs) - 1))
-            elif a.func in ("min", "max"):
-                specs.append({"func": a.func,
-                              "values": lane.to(torch_dtype(acc)),
-                              "valid": None, "distinct": False,
-                              "acc_dtype": acc,
-                              "np_kind": _np_kind(a.arg.dtype),
-                              "arg_id": ("sj_mm", a.arg)})
-                post.append(("plain", len(specs) - 1, None))
-            else:
-                return None
-
-        group_codes, results, n_groups, overflow = agg_ops.groupby_aggregate(
-            keys, participates, specs, max_groups, n_rows=n,
-            allow_kernel=self._seg_agg_on(), device=self.device)
-        self._push_flag(cap_key, overflow)
-        cols = self._group_key_cols(group_codes, key_meta, None)
-        cols += _post_cols(post, results, specs)
-        GLOBAL_METRICS.bump("torch_sorted_grouped_join_agg")
-        rv = torch.arange(max_groups, device=self.device) < n_groups
-        return DevBatch(plan.schema, cols, max_groups, rv,
-                        prefix_count=n_groups)
-
     def _grouped_join_aggregate(self, plan: P.TpuAggregate, path,
                                 left: DevBatch, cnt, participates) -> DevBatch:
         """GROUP BY over probe-side keys with multiplicity-weighted
         aggregates (the grouped half of the group-join rewrite).  Unmatched
         probe rows (cnt == 0) drop out of grouping, as in an inner join."""
-        keys = []
-        key_meta = []
-        for g in plan.group_exprs:
-            data, valid, dictionary = self.eval_expr(g, left)
-            code, null = key_code(data, valid, _np_kind(g.dtype))
-            if valid is None and _np_kind(g.dtype) != "f":
-                null = None
-            if self._int32_ok(g, left) and code.dtype == torch.int64:
-                code = self._narrow32(g, left, data)
-            keys.append((code, null))
-            key_meta.append((g.dtype, dictionary))
-        keys, packed_spec = self._pack_keys(plan.group_exprs, left, keys,
-                                            key_meta)
-
-        cap_key = ("agg", path)
-        max_groups = self.cap_override.get(
-            cap_key, min(self.config.max_groups, left.capacity))
-        self.meta["capacities"][cap_key] = max_groups
+        keys, key_meta, packed_spec, max_groups = self._group_keys(
+            plan.group_exprs, left, path)
 
         specs: List[dict] = []
         post = []
@@ -1471,12 +1297,10 @@ class _Interpreter:
         group_codes, results, n_groups, overflow = agg_ops.groupby_aggregate(
             keys, participates, specs, max_groups, n_rows=left.capacity,
             allow_kernel=self._seg_agg_on(), device=self.device)
-        self._push_flag(cap_key, overflow)
+        self._push_flag(("agg", path), overflow)
         cols = self._group_key_cols(group_codes, key_meta, packed_spec)
         cols += _post_cols(post, results, specs)
-        rv = torch.arange(max_groups, device=self.device) < n_groups
-        return DevBatch(plan.schema, cols, max_groups, rv,
-                        prefix_count=n_groups)
+        return self._grouped_batch(plan.schema, cols, max_groups, n_groups)
 
     _KERNEL_CMP = {">": "gt", ">=": "ge", "<": "lt", "<=": "le",
                    "=": "eq", "==": "eq", "!=": "ne", "<>": "ne"}
@@ -1593,29 +1417,11 @@ class _Interpreter:
                 tracing.annotate(route="join_aggregate")
                 return fast
         batch = self.exec(plan.input, path + (0,))
-        keys = []
-        key_meta = []
-        for g in plan.group_exprs:
-            data, valid, dictionary = self.eval_expr(g, batch)
-            code, null = key_code(data, valid, _np_kind(g.dtype))
-            if valid is None and _np_kind(g.dtype) != "f":
-                null = None  # statically null-free: drops a sort operand
-            if self._int32_ok(g, batch) and code.dtype == torch.int64:
-                code = self._narrow32(g, batch, data)  # zone-map narrow path
-            keys.append((code, null))
-            key_meta.append((g.dtype, dictionary))
-
-        keys, packed_spec = self._pack_keys(plan.group_exprs, batch, keys,
-                                            key_meta)
-
-        cap_key = ("agg", path)
         if plan.group_exprs:
-            max_groups = self.cap_override.get(
-                cap_key, min(self.config.max_groups, batch.capacity)
-            )
+            keys, key_meta, packed_spec, max_groups = self._group_keys(
+                plan.group_exprs, batch, path)
         else:
-            max_groups = 1
-        self.meta["capacities"][cap_key] = max_groups
+            keys, key_meta, packed_spec, max_groups = [], [], None, 1
 
         specs = []
         for a in plan.aggs:
@@ -1644,7 +1450,7 @@ class _Interpreter:
             device=self.device,
         )
         if plan.group_exprs:
-            self._push_flag(cap_key, overflow)
+            self._push_flag(("agg", path), overflow)
 
         cols = self._group_key_cols(group_codes, key_meta, packed_spec)
         i32max = (1 << 31) - 8
@@ -1671,12 +1477,41 @@ class _Interpreter:
             cols.append(DevCol(data, valid, spec.get("dictionary"),
                                int32_ok=ok32, value_range=rng32))
 
-        out_cap = max_groups if plan.group_exprs else 1
         if plan.group_exprs:
-            row_valid = torch.arange(out_cap, device=self.device) < n_groups
-            return DevBatch(plan.schema, cols, out_cap, row_valid,
-                            prefix_count=n_groups)
-        return DevBatch(plan.schema, cols, out_cap, None)
+            return self._grouped_batch(plan.schema, cols, max_groups,
+                                       n_groups)
+        return DevBatch(plan.schema, cols, 1, None)
+
+    def _group_keys(self, group_exprs, batch: DevBatch, path):
+        """The GROUP BY keys of ``group_exprs`` over ``batch``: the
+        ``(code, null)`` key list for ``groupby_aggregate``, each key's
+        ``(dtype, dictionary)``, ``_pack_keys``' packed spec, and the group
+        capacity, recorded under ``("agg", path)`` for a regrow."""
+        keys = []
+        key_meta = []
+        for g in group_exprs:
+            data, valid, dictionary = self.eval_expr(g, batch)
+            code, null = key_code(data, valid, _np_kind(g.dtype))
+            if valid is None and _np_kind(g.dtype) != "f":
+                null = None  # statically null-free: drops a sort operand
+            if self._int32_ok(g, batch) and code.dtype == torch.int64:
+                code = self._narrow32(g, batch, data)  # zone-map narrow path
+            keys.append((code, null))
+            key_meta.append((g.dtype, dictionary))
+        keys, packed_spec = self._pack_keys(group_exprs, batch, keys,
+                                            key_meta)
+        cap_key = ("agg", path)
+        max_groups = self.cap_override.get(
+            cap_key, min(self.config.max_groups, batch.capacity))
+        self.meta["capacities"][cap_key] = max_groups
+        return keys, key_meta, packed_spec, max_groups
+
+    def _grouped_batch(self, schema, cols, max_groups, n_groups) -> DevBatch:
+        """A GROUP BY's output: ``max_groups`` rows, the first ``n_groups``
+        of them valid."""
+        row_valid = torch.arange(max_groups, device=self.device) < n_groups
+        return DevBatch(schema, cols, max_groups, row_valid,
+                        prefix_count=n_groups)
 
     def _pack_keys(self, group_exprs, batch, keys, key_meta):
         """Multi-key GROUP BY packing: when every key is statically null-free
@@ -1858,9 +1693,7 @@ class _Interpreter:
         )
         self._push_flag(cap_key, overflow)
         cols = self._group_key_cols(group_codes, key_meta, packed_spec)
-        row_valid = torch.arange(max_groups, device=self.device) < n_groups
-        return DevBatch(plan.schema, cols, max_groups, row_valid,
-                        prefix_count=n_groups)
+        return self._grouped_batch(plan.schema, cols, max_groups, n_groups)
 
     def _push_flag(self, cap_key, flag):
         self.meta["flag_names"].append(cap_key)

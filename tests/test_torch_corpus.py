@@ -328,7 +328,7 @@ def test_summation_bound_refuses_the_prefix_difference_answer():
 @pytest.mark.parametrize("seed", [3, 11, 17, 42])
 def test_scaled_part_b_on_torch_cpu(seed):
     t1, t2, sql = corpus.fuzz_case(seed, corpus.CORPUS_SCALE_B)
-    port = _port(min_shape_bucket=256, enable_cache=False)
+    port = _port(enable_cache=False)
     port.register("t1", t1)
     port.register("t2", t2)
     res = port.query(sql)

@@ -70,7 +70,7 @@ def engines():
     n = 40_000
     # max_groups bounds the join pipeline's group tables (1M slots per
     # shard by default), which only costs time at this size
-    cfg = dict(min_shape_bucket=1024, max_groups=1 << 14)
+    cfg = dict(max_groups=1 << 14)
     port = _port(**cfg)
     port.register("t", {
         "k": rng.integers(0, 500, n).astype(np.int64),
@@ -102,7 +102,8 @@ def engines():
     port.register("tiny", {"k": np.array([1, 2, 1]), "v": np.array([5, 6, 7])})
     port.register("fd", {"f": np.arange(-8, 8, dtype=float),
                          "w": np.arange(16)})
-    jax_dist = make_engine("device", mesh_shape=(8,), **cfg)
+    jax_dist = make_engine("device", mesh_shape=(8,), min_shape_bucket=1024,
+                           **cfg)
     cpu = make_engine("cpu")
     mirror_tables(port, jax_dist, cpu)
     return port, jax_dist, cpu

@@ -102,7 +102,7 @@ def test_fuzz_port_matches_oracle(seed):
     """The generated queries of ``test_fuzz_parity.py``, the joins (whose
     aggregates draw on ``_AGGS_JOIN``) included."""
     t1, t2, sql = fuzz_case(seed)
-    port = _port(min_shape_bucket=256)
+    port = _port()
     port.register("t1", t1)
     port.register("t2", t2)
     cpu = make_engine("cpu")
@@ -147,8 +147,7 @@ def test_all_valid_masks_drop_at_host_boundary(engines):
 def bench_engines():
     rng = np.random.default_rng(0)
     n = 70_000  # above the filter_agg kernel's 64K-row gate
-    port = _port(max_groups=1 << 23, min_shape_bucket=1 << 16,
-                 enable_cache=False)
+    port = _port(max_groups=1 << 23, enable_cache=False)
     port.register("fa", {"k": rng.integers(0, 1 << 20, n),
                          "v": rng.integers(0, 1000, n)})
     rng = np.random.default_rng(1)
@@ -254,8 +253,7 @@ def test_empty_table(sql):
 # ---------------------------------------------------------------------------
 
 ROUTES = {"pallas_join_stream_trace": "torch_join_stream_path",
-          "sorted_global_join_agg": "torch_sorted_global_join_agg",
-          "sorted_grouped_join_agg": "torch_sorted_grouped_join_agg"}
+          "sorted_global_join_agg": "torch_sorted_global_join_agg"}
 
 
 def _routes_taken(fn, counters, metrics):
@@ -266,11 +264,17 @@ def _routes_taken(fn, counters, metrics):
                  if metrics.counters.get(c, 0) > before[c]}
 
 
-def _check_join_query(port, jax_dev, cpu, sql):
+def _check_join_query(port, jax_dev, cpu, sql, jax_routed=None):
+    """The port's rows equal the oracle's and ``jax_dev``'s, and its routes
+    are those the JAX engine ``jax_routed`` takes (``jax_dev`` itself
+    unless given)."""
     got, port_routes = _routes_taken(lambda: port.query(sql),
                                      ROUTES.values(), GLOBAL_METRICS)
     exp, jax_routes = _routes_taken(lambda: jax_dev.query(sql), ROUTES,
                                     JAX_METRICS)
+    if jax_routed is not None:
+        _, jax_routes = _routes_taken(lambda: jax_routed.query(sql), ROUTES,
+                                      JAX_METRICS)
     assert got.metrics["backend"] == "torch-cpu", sql
     assert port_routes == {ROUTES[r] for r in jax_routes}, sql
     # the routes the result reports are the counters the query bumped
@@ -301,7 +305,10 @@ GROUPJOIN_QUERIES = list(test_groupjoin.QUERIES) + [
 @pytest.fixture(scope="module", params=[None, True, False],
                 ids=["sorted_auto", "sorted_on", "sorted_off"])
 def groupjoin_engines(request):
-    """The tables of test_groupjoin.py under one ``use_sorted_join_agg``."""
+    """The tables of test_groupjoin.py on the port, on JAX's engine under
+    one ``use_sorted_join_agg``, and on the oracle; then, where that
+    setting is not JAX's default (None), a JAX engine at the default, whose
+    routes the port takes: the port has the default as its one behaviour."""
     rng = np.random.default_rng(7)
     nk = 40
     lv = rng.integers(0, 100, 1500).astype(np.int64)
@@ -310,32 +317,40 @@ def groupjoin_engines(request):
         "r": {"k": rng.integers(0, nk, 900).astype(np.int64),
               "w": rng.integers(0, 100, 900).astype(np.int64)},
     }
-    cfg = dict(min_shape_bucket=64, join_expansion=1.0,
-               use_sorted_join_agg=request.param)
-    port = _port(**cfg)
+    port = _port(join_expansion=1.0)
     for name, t in tables.items():
         port.register(name, t)
-    jax_dev = make_engine("device", **cfg)
+    jax_cfg = dict(join_expansion=1.0, min_shape_bucket=64)
+    jax_dev = make_engine("device", use_sorted_join_agg=request.param,
+                          **jax_cfg)
     cpu = make_engine("cpu")
     mirror_tables(port, jax_dev, cpu)
-    return port, jax_dev, cpu
+    jax_routed = None
+    if request.param is not None:
+        jax_routed = make_engine("device", **jax_cfg)
+        mirror_tables(port, jax_routed)
+    return port, jax_dev, cpu, jax_routed
 
 
 @pytest.mark.parametrize("sql", GROUPJOIN_QUERIES,
                          ids=range(len(GROUPJOIN_QUERIES)))
 def test_groupjoin_queries_take_jax_routes(groupjoin_engines, sql):
-    _check_join_query(*groupjoin_engines, sql)
+    port, jax_dev, cpu, jax_routed = groupjoin_engines
+    _check_join_query(port, jax_dev, cpu, sql, jax_routed)
 
 
 def _joins_case(name):
-    """(config, tables, sql) of the engine tests in test_joins.py."""
+    """(config, JAX's shape-bucket setting, tables, sql) of the engine tests
+    in test_joins.py: ``min_shape_bucket`` sets the JAX engine's capacities
+    and so its routes, and the port, which runs eagerly, has no such
+    option."""
     rng = np.random.default_rng({"presorted": 31, "stream": 33,
                                  "stream_grouped": 34}[name])
     if name == "presorted":
         nb = 5000
         bk = np.sort(rng.integers(0, nb // 2, nb)).astype(np.int64)
         pk = rng.integers(0, nb // 2, 8000).astype(np.int64)
-        return (dict(min_shape_bucket=256),
+        return (dict(), dict(min_shape_bucket=256),
                 {"b": {"k": bk, "w": np.arange(nb, dtype=np.int64)},
                  "p": {"k": pk}},
                 "SELECT COUNT(*) AS n, SUM(b.w) AS s FROM p JOIN b "
@@ -346,7 +361,7 @@ def _joins_case(name):
         rk = rng.integers(0, n // 2, n).astype(np.int64)
         lv = rng.integers(0, 1000, n).astype(np.int64)
         rw = rng.integers(0, 1000, n).astype(np.int64)
-        return (dict(join_expansion=2.5, min_shape_bucket=1 << 14),
+        return (dict(join_expansion=2.5), dict(min_shape_bucket=1 << 14),
                 {"l": {"k": lk, "v": lv}, "r": {"k": rk, "w": rw}},
                 "SELECT COUNT(*) AS n, SUM(l.v + r.w) AS s, "
                 "MIN(l.v - r.w) AS mn FROM l JOIN r ON l.k = r.k")
@@ -354,7 +369,7 @@ def _joins_case(name):
     lk = rng.integers(0, nkeys, nl).astype(np.int64)
     rk = rng.integers(0, nkeys, nr).astype(np.int64)
     rg = rng.integers(0, 7, nr).astype(np.int64)
-    return (dict(join_expansion=60.0, min_shape_bucket=1 << 14),
+    return (dict(join_expansion=60.0), dict(min_shape_bucket=1 << 14),
             {"l": {"k": lk}, "r": {"k": rk, "g": rg}},
             "SELECT r.g AS g, COUNT(*) AS n FROM l JOIN r ON l.k = r.k "
             "GROUP BY r.g")
@@ -362,11 +377,11 @@ def _joins_case(name):
 
 @pytest.mark.parametrize("name", ["presorted", "stream", "stream_grouped"])
 def test_joins_queries_take_jax_routes(name):
-    cfg, tables, sql = _joins_case(name)
+    cfg, jax_buckets, tables, sql = _joins_case(name)
     port = _port(**cfg)
     for tname, t in tables.items():
         port.register(tname, t)
-    jax_dev = make_engine("device", **cfg)
+    jax_dev = make_engine("device", **cfg, **jax_buckets)
     cpu = make_engine("cpu")
     mirror_tables(port, jax_dev, cpu)
     _check_join_query(port, jax_dev, cpu, sql)
@@ -387,7 +402,7 @@ def test_stream_join_engages_and_matches_oracle(monkeypatch, use_pallas):
             return _orig(*args)
 
         monkeypatch.setattr(tjs, fn, counted)
-    cfg, tables, sql = _joins_case("stream")
+    cfg, _, tables, sql = _joins_case("stream")
     port = _port(use_pallas=use_pallas, **cfg)
     for tname, t in tables.items():
         port.register(tname, t)

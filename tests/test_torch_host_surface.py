@@ -6,6 +6,7 @@ engines on ``device="cpu"``), the binding constructor
 the restored host helpers, ``tracing.configure``/``span``, and the metrics
 registry under threads that bump it while a query reads its routes."""
 
+import ast
 import asyncio
 import logging
 import os
@@ -302,16 +303,40 @@ def test_routes_stay_readable_while_other_threads_bump():
 def test_from_kwargs_maps_the_reference_names():
     kw = dict(max_gpu_memory=3 << 30, num_streams=3, use_unified_memory=False,
               batch_size=4096, max_groups=1 << 10)
+    # use_unified_memory is accepted, and sets nothing of the port's
     cfg = got.EngineConfig.from_kwargs(**kw)
-    assert (cfg.max_hbm_bytes, cfg.num_feed_buffers, cfg.out_of_core) == \
-        (3 << 30, 3, False)
+    assert (cfg.max_hbm_bytes, cfg.num_feed_buffers) == (3 << 30, 3)
     assert (cfg.batch_size, cfg.max_groups) == (4096, 1 << 10)
+    assert got.EngineConfig.from_kwargs(use_unified_memory=True) == \
+        got.EngineConfig()
     jcfg = jgot.EngineConfig.from_kwargs(**kw)
-    shared = set(got.EngineConfig.__dataclass_fields__) & \
-        set(jgot.EngineConfig.__dataclass_fields__)
-    assert shared == set(jgot.EngineConfig.__dataclass_fields__)
-    assert {f: getattr(cfg, f) for f in shared} == \
-        {f: getattr(jcfg, f) for f in shared}
+    assert jcfg.out_of_core is False
+    # the port keeps a subset of JAX's options, under JAX's names
+    fields = set(got.EngineConfig.__dataclass_fields__)
+    assert fields <= set(jgot.EngineConfig.__dataclass_fields__)
+    assert {f: getattr(cfg, f) for f in fields} == \
+        {f: getattr(jcfg, f) for f in fields}
+
+
+def test_every_engine_config_field_is_read_by_the_port():
+    """Each option of the port's ``EngineConfig`` is read, as an attribute,
+    by some module of the package other than ``config.py``: an option that
+    no code reads is one a user sets for nothing."""
+    pkg = os.path.dirname(got.__file__)
+    read = set()
+    for root, _dirs, files in os.walk(pkg):
+        for name in files:
+            path = os.path.join(root, name)
+            if not name.endswith(".py") or \
+                    path == os.path.join(pkg, "config.py"):
+                continue
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            read |= {node.attr for node in ast.walk(tree)
+                     if isinstance(node, ast.Attribute)
+                     and isinstance(node.ctx, ast.Load)}
+    fields = set(got.EngineConfig.__dataclass_fields__)
+    assert fields - read == set()
 
 
 @pytest.mark.parametrize("kw", [{"max_gpu_mem": 1}, {"num_stream": 8},

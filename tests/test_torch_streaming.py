@@ -56,10 +56,10 @@ def big_parquet(tmp_path_factory):
 def _engines(paths, batch_size=8192, **kw):
     """(port, JAX streamed engine, oracle) over the Parquet ``paths``
     (name -> path), the first two with every table uncached."""
-    cfg = dict(table_cache_threshold_rows=1000, batch_size=batch_size,
-               min_shape_bucket=1024, **kw)
+    cfg = dict(table_cache_threshold_rows=1000, batch_size=batch_size, **kw)
     port = TorchOlapEngine(TorchConfig(**cfg), device="cpu")
-    jax_eng = OlapEngine(EngineConfig(backend="device", **cfg))
+    jax_eng = OlapEngine(EngineConfig(backend="device", min_shape_bucket=1024,
+                                      **cfg))
     oracle = OlapEngine(EngineConfig(backend="cpu"))
     for name, path in paths.items():
         for eng in (port, jax_eng, oracle):
